@@ -1,0 +1,116 @@
+"""The flagship model of the port: Pair-Net R-50 (PSGTr + PairNetHead).
+
+Counterpart of ``__graft_entry__.py::_flagship`` with the same widths:
+133 classes, 56 predicates, 100 object and 100 relation queries, width 256,
+6 pixel-decoder layers, 9 decoder layers, 6 relation layers. ``tiny=True``
+gives the small model the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from pairnet_torch.models.backbones.resnet import ResNet
+from pairnet_torch.models.frameworks.psgtr import PSGTr
+from pairnet_torch.models.heads.pairnet_head import PairNetHead
+from pairnet_torch.models.layers import (
+    FrozenBatchNorm,
+    MSDeformAttention,
+    MultiheadAttention,
+    deform_offsets_bias,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA; asking for CUDA without a GPU raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fill every parameter and buffer from a seeded generator: lecun-normal
+    kernels and zero biases, N(0, 1) tables, identity norms, and mmcv's
+    deformable-attention init (zero offset/weight kernels, offset grid bias)."""
+    device = next(model.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.weight[0].numel()), generator=g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=g)
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, MultiheadAttention):
+                m.in_proj_weight.normal_(0.0, 1.0 / math.sqrt(m.embed_dims), generator=g)
+                m.in_proj_bias.zero_()
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        for m in model.modules():
+            if isinstance(m, MSDeformAttention):
+                m.sampling_offsets.weight.zero_()
+                m.sampling_offsets.bias.copy_(
+                    deform_offsets_bias(m.num_heads, m.num_levels, m.num_points)
+                )
+                m.attention_weights.weight.zero_()
+                m.attention_weights.bias.zero_()
+    return model
+
+
+def perturb_deform_kernels(model: nn.Module, seed: int = 1, std: float = 0.05) -> nn.Module:
+    """Give the zero-initialised sampling-offset and attention-weight kernels
+    seeded noise, so the deformable taps move off their initial grid."""
+    device = next(model.parameters()).device
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MSDeformAttention):
+                for lin in (m.sampling_offsets, m.attention_weights):
+                    noise = torch.randn(lin.weight.shape, generator=g, device=device)
+                    lin.weight.add_(std * noise.to(lin.weight.dtype))
+    return model
+
+
+def set_deform_impl(model: nn.Module, impl: str | None) -> nn.Module:
+    """Route every MSDeformAttention of ``model`` through ``impl``."""
+    for m in model.modules():
+        if isinstance(m, MSDeformAttention):
+            m.impl = impl
+    return model
+
+
+def flagship(tiny: bool = False, device=None, dtype=torch.float32, seed: int = 0) -> PSGTr:
+    """Pair-Net R-50 with seeded weights, in eval mode, on ``device``
+    (default CUDA). ``dtype=torch.bfloat16`` casts every float parameter and
+    buffer, frozen BN statistics included, as the JAX bf16 serving does."""
+    device = resolve_device(device)
+    with torch.device("meta"):  # allocate nothing until the device is known
+        if tiny:
+            backbone = ResNet(depth=50, base_width=8)
+            head = PairNetHead(
+                backbone.out_channels, num_classes=7, num_relations=5, num_obj_query=20,
+                num_rel_query=16, embed_dims=32, num_heads=4, num_decoder_layers=3,
+                num_relation_layers=2, pixel_decoder_layers=1,
+            )
+        else:
+            backbone = ResNet(depth=50)
+            head = PairNetHead(
+                backbone.out_channels, num_classes=133, num_relations=56, num_obj_query=100,
+                num_rel_query=100, embed_dims=256, num_heads=8, num_decoder_layers=9,
+                num_relation_layers=6, pixel_decoder_layers=6,
+            )
+        model = PSGTr(backbone, head)
+    model = model.to_empty(device=device)
+    init_weights(model, seed)
+    return model.to(dtype).eval()

@@ -1,0 +1,116 @@
+"""Pair-Net head: Mask2Former segmenter + Pair Proposal Network + Relation Fusion.
+
+Counterpart of ``pairnet_tpu/models/heads/pairnet_head.py::PairNetHead``
+(``direct=False``, ConvTiny matrix learner), with the reference
+checkpoint's module names (``CrossHead2``): the query tables, ``cls_embed``
+and ``mask_embed`` sit on the head, the decoder layers under
+``transformer_decoder``, the relation layers under ``relation_decoder``.
+
+* PPN: 3-layer sub/obj MLPs on the final queries, L2-normalized outer
+  product -> (Q, Q) affinity, ConvTiny refinement, top-k over the
+  flattened Q*Q matrix (sub = idx // Q, obj = idx % Q).
+* Relation Fusion: relation queries cross-attend over the concatenated
+  subject/object query features with a learned key positional table.
+  ``rel_query_embed3`` is allocated as in the reference and never read.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pairnet_torch.models.decoders.mask2former_decoder import DecoderLayer, Mask2FormerDecoder
+from pairnet_torch.models.heads.matrix_learner import ConvTiny
+from pairnet_torch.models.layers import MLP, sine_positional_encoding
+from pairnet_torch.models.necks.pixel_decoder import MSDeformAttnPixelDecoder
+
+
+class PairNetHead(nn.Module):
+    def __init__(self, in_channels, num_classes=133, num_relations=56, num_obj_query=100,
+                 num_rel_query=100, embed_dims=256, num_heads=8, num_decoder_layers=9,
+                 num_relation_layers=6, num_feat_levels=3, pixel_decoder_layers=6,
+                 pixel_decoder_ffn=1024, decoder_ffn=2048, relation_ffn=2048,
+                 relation_ffn_drop=0.1):
+        super().__init__()
+        C, K = embed_dims, num_rel_query
+        self.num_rel_query = K
+        self.pixel_decoder = MSDeformAttnPixelDecoder(
+            in_channels, feat_channels=C, out_channels=C, num_encoder_levels=num_feat_levels,
+            num_encoder_layers=pixel_decoder_layers, num_heads=num_heads,
+            feedforward_channels=pixel_decoder_ffn,
+        )
+        self.transformer_decoder = Mask2FormerDecoder(
+            C, num_heads, num_decoder_layers, decoder_ffn
+        )
+        self.query_feat = nn.Embedding(num_obj_query, C)
+        self.query_embed = nn.Embedding(num_obj_query, C)
+        self.level_embed = nn.Embedding(num_feat_levels, C)
+        self.cls_embed = nn.Linear(C, num_classes + 1)
+        self.mask_embed = MLP(C, C, C, 3)
+        self.rel_query_feat = nn.Embedding(K, C)
+        self.rel_query_embed = nn.Embedding(K, C)
+        self.rel_query_embed2 = nn.Embedding(2 * K, C)
+        self.rel_query_embed3 = nn.Embedding(2 * K, C)  # dead in the reference
+        self.sub_query_update = MLP(C, C, C, 3)
+        self.obj_query_update = MLP(C, C, C, 3)
+        self.rel_cls_embed = nn.Linear(C, num_relations)
+        self.update_importance = ConvTiny()
+        self.relation_decoder = nn.Module()  # reference naming: relation_decoder.layers.<i>
+        self.relation_decoder.layers = nn.ModuleList([
+            DecoderLayer(C, num_heads, relation_ffn, relation_ffn_drop)
+            for _ in range(num_relation_layers)
+        ])
+
+    def forward(self, feats):
+        """feats: backbone (C2, C3, C4, C5) NCHW. Returns the prediction dict."""
+        mask_features, ms_feats = self.pixel_decoder(feats)
+        pos_encodings = [
+            sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2,
+                                     dtype=f.dtype, device=f.device)
+            for f in ms_feats
+        ]
+        dec = self.transformer_decoder(
+            ms_feats, mask_features, pos_encodings, self.query_feat.weight,
+            self.query_embed.weight, self.level_embed.weight, self.cls_embed, self.mask_embed,
+        )
+        cls_pred, mask_pred, queries = dec["cls"], dec["mask"], dec["queries"]
+        B, Q, C = queries.shape
+        K = self.num_rel_query
+
+        # --- Pair Proposal Network ---
+        sub_embed = self.sub_query_update(queries)
+        obj_embed = self.obj_query_update(queries)
+        sub_embed = sub_embed / sub_embed.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        obj_embed = obj_embed / obj_embed.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        importance = torch.matmul(sub_embed.float(), obj_embed.float().transpose(1, 2))
+        importance = self.update_importance(importance)  # (B, Q, Q)
+
+        topk_idx = importance.reshape(B, Q * Q).topk(K, dim=-1).indices
+        sub_pos = torch.div(topk_idx, Q, rounding_mode="floor")
+        obj_pos = topk_idx % Q
+        rows = torch.arange(B, device=queries.device)[:, None]
+        sub_query_feat = queries[rows, sub_pos]
+        obj_query_feat = queries[rows, obj_pos]
+        pair_feat = torch.cat([sub_query_feat, obj_query_feat], dim=1)
+
+        # --- Relation Fusion ---
+        rel_query = self.rel_query_feat.weight[None].expand(B, -1, -1)
+        rel_query_pos = self.rel_query_embed.weight[None]
+        key_pos = self.rel_query_embed2.weight[None]
+        for layer in self.relation_decoder.layers:
+            rel_query = layer(rel_query, rel_query_pos, pair_feat, key_pos, None)
+        rel_preds = self.rel_cls_embed(rel_query)
+
+        return {
+            "cls": cls_pred,
+            "mask": mask_pred,
+            "rel": rel_preds,
+            "importance": importance,
+            "sub": cls_pred[rows, sub_pos],
+            "obj": cls_pred[rows, obj_pos],
+            "sub_seg": mask_pred[rows, sub_pos],
+            "obj_seg": mask_pred[rows, obj_pos],
+            "sub_pos": sub_pos,
+            "obj_pos": obj_pos,
+            "queries": queries,
+        }

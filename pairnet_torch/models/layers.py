@@ -1,0 +1,208 @@
+"""Shared building blocks (batch-first tokens, NCHW feature maps).
+
+Counterpart of ``pairnet_tpu/models/layers.py``. Module and parameter names
+follow the reference checkpoints (torch ``nn.MultiheadAttention``, mmcv FFN
+and MultiScaleDeformableAttention), so a published ``state_dict`` loads
+with ``load_state_dict``. Norm epsilons follow the JAX package (flax's
+1e-6), not torch's default.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pairnet_torch.ops.deform_attn import ms_deform_attn
+
+LN_EPS = 1e-6  # flax LayerNorm / GroupNorm default
+
+
+def sine_positional_encoding(h, w, num_feats=128, temperature=10000.0, normalize=True,
+                             scale=2 * math.pi, offset=0.0, eps=1e-6,
+                             dtype=torch.float32, device=None):
+    """DETR sine positional encoding of an unpadded (h, w) map -> (h, w, 2*num_feats).
+
+    mmdet SinePositionalEncoding(normalize=True) with a zero padding mask:
+    y features first, then x; sin on even and cos on odd feature indices.
+    """
+    y_embed = torch.arange(1, h + 1, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    x_embed = torch.arange(1, w + 1, dtype=torch.float32, device=device)[None, :].expand(h, w)
+    if normalize:
+        y_embed = (y_embed + offset) / (h + eps) * scale
+        x_embed = (x_embed + offset) / (w + eps) * scale
+    dim_t = torch.arange(num_feats, dtype=torch.float32, device=device)
+    dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor") / num_feats)
+    pos_x = x_embed[..., None] / dim_t
+    pos_y = y_embed[..., None] / dim_t
+    pos_x = torch.stack([pos_x[..., 0::2].sin(), pos_x[..., 1::2].cos()], dim=-1)
+    pos_y = torch.stack([pos_y[..., 0::2].sin(), pos_y[..., 1::2].cos()], dim=-1)
+    pos = torch.cat([pos_y.reshape(h, w, num_feats), pos_x.reshape(h, w, num_feats)], dim=-1)
+    return pos.to(dtype)
+
+
+class MLP(nn.Sequential):
+    """n-layer ReLU MLP; Linear layers at Sequential indices 0, 2, 4, ..."""
+
+    def __init__(self, in_dim, hidden_dim, out_dim, num_layers=3):
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1)
+        layers = []
+        for i in range(num_layers - 1):
+            layers += [nn.Linear(dims[i], hidden_dim), nn.ReLU()]
+        layers.append(nn.Linear(dims[-1], out_dim))
+        super().__init__(*layers)
+
+
+def linear_f32(x, layer: nn.Linear):
+    """``layer`` applied in f32 with its weights upcast (flax promotion of
+    an f32 input against bf16 weights)."""
+    return F.linear(x.float(), layer.weight.float(), layer.bias.float())
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention semantics, batch-first, packed in_proj.
+
+    ``attn_mask`` is bool with True = masked out, shaped (B, 1 or H, Lq, Lk).
+    Written out as matmul, -1e9 fill, f32 softmax and matmul.
+    """
+
+    def __init__(self, embed_dims, num_heads):
+        super().__init__()
+        self.embed_dims = embed_dims
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dims))
+        self.out_proj = nn.Linear(embed_dims, embed_dims)
+
+    def forward(self, query, key, value, attn_mask=None):
+        C, H = self.embed_dims, self.num_heads
+        D = C // H
+        w, b = self.in_proj_weight, self.in_proj_bias
+        q = F.linear(query, w[:C], b[:C])
+        k = F.linear(key, w[C : 2 * C], b[C : 2 * C])
+        v = F.linear(value, w[2 * C :], b[2 * C :])
+        B, Lq, _ = q.shape
+        Lk = k.shape[1]
+        q = q.reshape(B, Lq, H, D).transpose(1, 2)
+        k = k.reshape(B, Lk, H, D).transpose(1, 2)
+        v = v.reshape(B, Lk, H, D).transpose(1, 2)
+        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(D))
+        if attn_mask is not None:
+            logits = logits.masked_fill(attn_mask, -1e9)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Lq, C)
+        return self.out_proj(out)
+
+
+class AttnSlot(nn.Module):
+    """mmcv wrapper naming: the attention sits at ``attentions.<i>.attn``."""
+
+    def __init__(self, embed_dims, num_heads):
+        super().__init__()
+        self.attn = MultiheadAttention(embed_dims, num_heads)
+
+    def forward(self, *args, **kwargs):
+        return self.attn(*args, **kwargs)
+
+
+class FFN(nn.Module):
+    """mmcv FFN: Linear -> ReLU -> Dropout -> Linear -> Dropout (residual
+    added by the caller). Parameters at ``layers.0.0`` and ``layers.1``."""
+
+    def __init__(self, embed_dims, feedforward_channels, ffn_drop=0.0):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(
+                nn.Linear(embed_dims, feedforward_channels), nn.ReLU(), nn.Dropout(ffn_drop)
+            ),
+            nn.Linear(feedforward_channels, embed_dims),
+            nn.Dropout(ffn_drop),
+        )
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics and affine parameters (buffers)."""
+
+    def __init__(self, features, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):  # NCHW
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        return x * scale[:, None, None] + shift[:, None, None]
+
+
+def deform_offsets_bias(num_heads, num_levels, num_points):
+    """mmcv MultiScaleDeformableAttention sampling_offsets bias init."""
+    thetas = torch.arange(num_heads, dtype=torch.float32) * (2.0 * math.pi / num_heads)
+    grid = torch.stack([thetas.cos(), thetas.sin()], dim=-1)
+    grid = grid / grid.abs().amax(dim=-1, keepdim=True)
+    grid = grid[:, None, None, :].repeat(1, num_levels, num_points, 1)
+    scale = torch.arange(1, num_points + 1, dtype=torch.float32)[None, None, :, None]
+    return (grid * scale).reshape(-1)
+
+
+class MSDeformAttention(nn.Module):
+    """Multi-scale deformable self-attention over point references.
+
+    The residual is added here (mmcv adds the identity inside the module).
+    ``impl`` picks the MSDA implementation (see ``ops/deform_attn.py``);
+    None means the device default.
+    """
+
+    def __init__(self, embed_dims=256, num_heads=8, num_levels=3, num_points=4):
+        super().__init__()
+        self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
+        self.impl: str | None = None
+        C = embed_dims
+        self.sampling_offsets = nn.Linear(C, num_heads * num_levels * num_points * 2)
+        self.attention_weights = nn.Linear(C, num_heads * num_levels * num_points)
+        self.value_proj = nn.Linear(C, C)
+        self.output_proj = nn.Linear(C, C)
+
+    def forward(self, query, value, reference_points, spatial_shapes: Sequence[tuple[int, int]],
+                query_pos=None, identity=None):
+        """query (B, Q, C); value (B, S, C); reference_points (B or 1, Q, L, 2)."""
+        B, Q, C = query.shape
+        H, L, P = self.num_heads, self.num_levels, self.num_points
+        if identity is None:
+            identity = query
+        if query_pos is not None:
+            query = query + query_pos
+        v = self.value_proj(value).reshape(B, -1, H, C // H)
+        offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
+        attn = self.attention_weights(query).reshape(B, Q, H, L * P)
+        attn = torch.softmax(attn, dim=-1).reshape(B, Q, H, L, P)
+        normalizer = torch.tensor(
+            [[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device
+        )  # (L, 2) as (w, h)
+        locs = reference_points[:, :, None, :, None, :].float() + offsets.float() / normalizer[
+            None, None, None, :, None, :
+        ]
+        out = ms_deform_attn(v, spatial_shapes, locs, attn, impl=self.impl)
+        out = self.output_proj(out.to(identity.dtype))
+        return identity + out
+
+
+def encoder_reference_points(spatial_shapes, device=None):
+    """Per-pixel normalized centre reference points, (S, L, 2) as (x, y)."""
+    L = len(spatial_shapes)
+    refs = []
+    for h, w in spatial_shapes:
+        ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+        yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+        refs.append(torch.stack([xx, yy], dim=-1).reshape(-1, 2))
+    ref = torch.cat(refs, dim=0)
+    return ref[:, None, :].expand(-1, L, -1)

@@ -1,0 +1,71 @@
+"""Wrapper of the exact MSDA CUDA kernel (``csrc/deform_attn_exact.cu``).
+
+Replaces ``pairnet_tpu/ops/pallas_deform_attn_v6.py::_kernel`` (f32 values)
+and ``pairnet_tpu/ops/pallas_deform_attn_v7.py::_kernel`` (bf16 values). The
+kernel is bound by bytes on an H100; see the source note.
+
+On a CPU tensor the wrapper runs the plain version,
+:func:`pairnet_torch.ops.deform_attn.ms_deform_attn_plain`. On a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pairnet_torch.ops import _build
+from pairnet_torch.ops.deform_attn import check_inputs, ms_deform_attn_plain
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+_FN = {torch.float32: "deform_attn_exact_f32", torch.bfloat16: "deform_attn_exact_bf16"}
+
+@functools.cache
+def _lib():
+    lib = _build.load("deform_attn_exact")
+    for name in _FN.values():
+        getattr(lib, name).argtypes = _ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def host_shapes(spatial_shapes):
+    """(h, w) pairs as a host int array for the C launchers."""
+    flat = [int(v) for hw in spatial_shapes for v in hw]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weights):
+    """Exact MSDA: value f32 or bf16, f32 output (B, Q, H * D)."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if value.device.type == "cpu":
+        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"deform_attn_exact: unsupported device {value.device}")
+    if value.dtype not in _FN:
+        raise TypeError(f"deform_attn_exact: value dtype {value.dtype} is not f32 or bf16")
+    check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
+    value = value.contiguous()
+    locs = sampling_locations.float().contiguous()
+    weights = attention_weights.float().contiguous()
+    B, S, H, D = value.shape
+    Q, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
+    out = torch.empty((B, Q, H * D), device=value.device, dtype=torch.float32)
+    hw = host_shapes(spatial_shapes)
+    fn = getattr(_lib(), _FN[value.dtype])
+    with torch.cuda.device(value.device):
+        status = fn(
+            value.data_ptr(), locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            B, S, Q, H, D, L, P, ctypes.addressof(hw),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "deform_attn_exact")
+    deform_attn_exact.launches += 1
+    return out
+
+
+deform_attn_exact.launches = 0

@@ -1,0 +1,128 @@
+"""Port parity: the MSDA op of ``pairnet_torch`` against the JAX package.
+
+The plain versions of the port's three CUDA kernels (exact MSDA, int4
+quantize, int4 gather) are held against the JAX row-gather reference and
+the TPU kernels run in interpret mode. The CUDA kernels themselves are
+held against these plain versions on the GPU by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+from jax.experimental.pallas import tpu as pltpu
+
+import pairnet_tpu.ops.pallas_deform_attn_v6 as v6
+import pairnet_tpu.ops.pallas_deform_attn_v16 as v16
+from pairnet_tpu.ops.deform_attn import ms_deform_attn as jax_msda
+from test_torch_helpers import msda_inputs
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from pairnet_torch.ops.deform_attn import ms_deform_attn, ms_deform_attn_plain  # noqa: E402
+from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
+    int4_quantize,
+    ms_deform_attn_int4,
+)
+
+
+def _rows(shapes, value, locs, w):
+    return np.asarray(jax_msda(jnp.asarray(value), shapes, jnp.asarray(locs),
+                               jnp.asarray(w), impl="rows"))
+
+
+@pytest.mark.parametrize("wild", [False, True])
+def test_plain_matches_rows(wild):
+    """f32, tight and wild offsets (out-of-plane corners), atol 1e-5."""
+    shapes, value, locs, w = msda_inputs(seed=1, wild=wild, Q=300)
+    ref = _rows(shapes, value, locs, w)
+    out = ms_deform_attn_plain(torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_plain_on_bf16_values_matches_rows():
+    """bf16 values (the v7 case): read exactly, summed in f32, f32 output."""
+    shapes, value, locs, w = msda_inputs(seed=2, wild=True, Q=200)
+    vb = torch.tensor(value).to(torch.bfloat16)
+    ref = _rows(shapes, vb.float().numpy(), locs, w)
+    out = ms_deform_attn_plain(vb, shapes, torch.tensor(locs), torch.tensor(w))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def test_plain_matches_v6_interpret():
+    """One small run of the f32 TPU kernel in interpret mode, atol 1e-5."""
+    shapes = ((6, 8), (3, 4))
+    shapes, value, locs, w = msda_inputs(seed=4, wild=True, B=1, H=2, D=8, Q=40, P=2,
+                                         shapes=shapes)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(v6._ms_deform_attn_v6_impl(
+            jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(w)))
+    out = ms_deform_attn_plain(torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+def _v16_codes(shapes, value):
+    """int4 codes of the TPU quantize kernel (``_quantize_pack_int4`` in
+    interpret mode), unpacked to (B, S, H, D), with its (B, H, L, D) scales."""
+    B, S, H, D = value.shape
+    blk = v16.BLK
+    vT = jnp.asarray(value).transpose(0, 2, 3, 1).reshape(B * H, D, S)
+    planes, scales, offs, pads, pos, start = [], [], [], [], 0, 0
+    for h, w in shapes:
+        n = h * w
+        pad = -(-(n + blk) // blk) * blk
+        vl = vT[:, :, start : start + n]
+        scales.append(jnp.maximum(jnp.max(jnp.abs(vl), axis=2, keepdims=True) / 7.0, 1e-20))
+        planes.append(jnp.pad(vl, ((0, 0), (0, 0), (0, pad - n))))
+        offs.append(pos)
+        pads.append(pad)
+        pos += pad
+        start += n
+    scales_dl = jnp.concatenate(scales, axis=2)  # (BH, D, L)
+    with pltpu.force_tpu_interpret_mode():
+        packed = np.asarray(v16._quantize_pack_int4(
+            jnp.concatenate(planes, axis=2), scales_dl, shapes, tuple(offs), tuple(pads)))
+    lo = (packed << 28) >> 28  # channel d, corner 00
+    hi = (packed << 12) >> 28  # channel d + D/2, corner 00
+    codes = np.concatenate([lo, hi], axis=1)  # (BH, D, S_pad)
+    codes = np.concatenate(
+        [codes[:, :, o : o + h * w] for o, (h, w) in zip(offs, shapes)], axis=2)
+    codes = codes.reshape(B, H, D, S).transpose(0, 3, 1, 2)
+    scales = np.asarray(scales_dl).reshape(B, H, D, len(shapes)).transpose(0, 1, 3, 2)
+    return codes, scales
+
+
+def test_int4_plain_matches_v16_interpret():
+    """Codes and scales bit-equal to the TPU quantize kernel; the output
+    within atol 2e-2 / rtol 1e-3 of the TPU gather kernel (its test's bound)."""
+    shapes, value, locs, w = msda_inputs(seed=1, wild=False)
+    ref_codes, ref_scales = _v16_codes(shapes, value)
+    codes, scales = int4_quantize(torch.tensor(value), shapes)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy().astype(np.int32), ref_codes)
+    np.testing.assert_array_equal(scales.numpy(), ref_scales)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(v16._ms_deform_attn_v16_impl(
+            jnp.asarray(value), shapes, jnp.asarray(locs), jnp.asarray(w)), np.float32)
+    out = ms_deform_attn_int4(torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=1e-3)
+
+
+@pytest.mark.parametrize("impl", [None, "exact", "int4", "plain"])
+def test_cpu_dispatch_takes_plain(impl):
+    """On CPU tensors every impl runs the plain exact MSDA."""
+    shapes, value, locs, w = msda_inputs(seed=6, B=1, H=2, D=8, Q=50)
+    args = (torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
+    out = ms_deform_attn(*args, impl=impl)
+    assert torch.equal(out, ms_deform_attn_plain(*args))
+
+
+def test_unknown_impl_raises():
+    shapes, value, locs, w = msda_inputs(seed=6, B=1, H=2, D=8, Q=10)
+    with pytest.raises(ValueError, match="unknown ms_deform_attn impl"):
+        ms_deform_attn(torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w),
+                       impl="pallas_v16")
