@@ -9,22 +9,38 @@ result line then):
   1. build the CUDA kernels from pairnet_torch/csrc (one nvcc each, in parallel).
   2. hold every kernel against its plain PyTorch version at the pixel
      decoder's encoder geometry of an 800x1344 image, batch 2, with wide
-     sampling offsets (many taps out of the plane).
+     sampling offsets (many taps out of the plane): the forward kernels and
+     the three instances of the backward kernel (f32, bf16, bf16_grad).
   3. serve full-width Pair-Net R-50 (800x1344, batch 8, bf16, int4 MSDA):
      counts each kernel's launches in that run, checks the outputs.
   4. an f32 forward (batch 1, TF32 off) through the exact kernel against
      the same forward through the plain MSDA.
-  5. each kernel against its plain version again, on the inputs the main
-     paths gave it (first encoder layer: batch 8 bf16 serving for the int4
-     kernels, batch 1 f32 for the exact one), with the tolerances of phase 2;
-     timings with CUDA events: serving img/s, each kernel and its plain
-     version on those inputs, and each kernel's bound.
-Then one JSON line of kernels, the card's name and power limit, and the
-final line {"ok": true, "device": {...}}.
+  5. each serving kernel against its plain version again, on the inputs
+     the main paths gave it (first encoder layer: batch 8 bf16 serving for
+     the int4 kernels, batch 1 f32 for the exact one), with the tolerances
+     of phase 2; timings with CUDA events: serving img/s, each kernel and
+     its plain version on those inputs, and each kernel's bound.
+  6. train full-width Pair-Net R-50 (800x1344, batch 4, bf16 compute over
+     f32 masters, the geometry of ``python -m pairnet_torch.bench --train``):
+     a warm-up and 3 steps on the exact backward, then 1 step on the
+     bf16_grad backward; counts 6 forward and 6 backward MSDA launches per
+     step and no call of a plain version; checks finite losses, a positive
+     grad norm, a head weight moved, the frozen stem unchanged, the Seesaw
+     counts grown and a gradient in every encoder layer's sampling offsets.
+  7. one f32 train step (batch 1, TF32 off) through the MSDA kernels
+     against the same step through the plain MSDA, which replays the
+     kernel run's attention masks, pair picks and Hungarian targets (the
+     entries it would have set otherwise are counted): losses and every
+     MSDA parameter gradient.
+  8. the training kernels on the inputs the training paths handed them
+     (first encoder layer), with phase 2's tolerances; their timings.
+Then one JSON line of kernels, one of serving, one of training, the card's
+name and power limit, and the final line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import sys
 import time
@@ -41,6 +57,12 @@ F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 TOL_EXACT_F32 = 1e-4  # max |kernel - plain|, f32 values
 TOL_EXACT_BF16_REL = 1e-3  # max |kernel - plain| / max |plain|, bf16 values
 TOL_FORWARD_REL = 1e-3  # phase 4: max |exact - plain| / max(1, max |plain|)
+TOL_TRAIN_REL = 1e-3  # phase 7: losses within it x max(1, |plain|), each gradient x its max |plain|
+TRAIN_BATCH, TRAIN_STEPS = 4, 3
+# the backward's least work per in-plane corner and channel: one FMA for
+# s_c = sum_d g*v, one multiply and one add for dvalue (dweights and dlocs
+# are then per-corner sums over s_c); bf16_grad rounds each dvalue term too
+BWD_OPS_PER_CORNER = {"exact": 4, "bf16_grad": 5}
 
 
 def log(msg):
@@ -82,6 +104,40 @@ def msda_inputs(B, dtype, seed, dev):
     return value, locs, w
 
 
+def inside_corners(locs):
+    """Bilinear corners of ``locs`` (B, Q, H, L, P, 2) inside their level's
+    plane: the taps whose work the backward has to do."""
+    n = 0
+    for lvl, (h, w) in enumerate(SHAPES):
+        x0 = torch.floor(locs[..., lvl, :, 0] * w - 0.5)
+        y0 = torch.floor(locs[..., lvl, :, 1] * h - 0.5)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                n += int(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum())
+    return n
+
+
+class Replay:
+    """Records what ``fn`` returns in one run and hands it back, call by
+    call, in a second run, counting the entries the second run's own result
+    would have set otherwise (``diff(own, kept)``)."""
+
+    def __init__(self, fn, diff):
+        self.fn, self.diff, self.kept, self.replay, self.flips = fn, diff, [], None, 0
+
+    def __call__(self, *args, **kwargs):
+        own = self.fn(*args, **kwargs)
+        if self.replay is None:
+            self.kept.append(own)
+            return own
+        kept = next(self.replay)
+        self.flips += self.diff(own, kept)
+        return kept
+
+    def start_replay(self):
+        self.replay = iter(self.kept)
+
+
 def decided_ranks(values, k, tol):
     s = torch.sort(values.double().flatten(), descending=True).values[: k + 1]
     gap = (s[:-1] - s[1:]).abs()
@@ -93,19 +149,32 @@ def main():
     # --- (0) the card ---
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a GPU")
-    from pairnet_torch.bench import gpu_name_and_power_limit, serve
-    from pairnet_torch.flagship import flagship, perturb_deform_kernels, set_deform_impl
+    from pairnet_torch.bench import gpu_name_and_power_limit, serve, train_batch, train_setup
+    from pairnet_torch.flagship import (
+        flagship,
+        perturb_deform_kernels,
+        set_deform_bwd,
+        set_deform_impl,
+    )
     from pairnet_torch.models import layers as layers_mod
     from pairnet_torch.ops import _build
-    from pairnet_torch.ops.deform_attn import ms_deform_attn_plain
+    from pairnet_torch.ops import deform_attn as msda_mod
+    from pairnet_torch.ops import deform_attn_bwd as bwd_mod
+    from pairnet_torch.ops import deform_attn_exact as exact_mod
+    from pairnet_torch.ops.deform_attn import bf16_ulps_off, ms_deform_attn_plain
+    from pairnet_torch.ops.deform_attn_bwd import (
+        bwd_mismatch,
+        deform_attn_bwd,
+        ms_deform_attn_bwd_plain,
+    )
     from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
     from pairnet_torch.ops.deform_attn_int4 import (
-        bf16_ulps_off,
         int4_gather,
         int4_gather_plain,
         int4_quantize,
         int4_quantize_plain,
     )
+    from pairnet_torch.train import trainer as trainer_mod
 
     smi = gpu_name_and_power_limit()
     dev = torch.device(DEVICE)
@@ -142,6 +211,18 @@ def main():
         check(n_over == 0, f"int4_gather: {n_over} outputs beyond 1 bf16 ulp of plain")
         return float((k.float() - p.float()).abs().max())
 
+    def compare_bwd(k, p):
+        err, failures = bwd_mismatch(k, p)
+        check(not failures, f"deform_attn_bwd: {failures}")
+        return err
+
+    def bwd_inputs(value, bwd):
+        """(kernel call, plain call) of the backward instance that runs
+        ``bwd`` on values of this dtype."""
+        return (lambda v, lc, wt, g: deform_attn_bwd(v, SHAPES, lc, wt, g, bwd),
+                lambda v, lc, wt, g: ms_deform_attn_bwd_plain(v, SHAPES, lc, wt, g,
+                                                              bf16_grad=bwd == "bf16_grad"))
+
     v32, locs, w = msda_inputs(CHECK_BATCH, torch.float32, 0, dev)
     e_f32 = compare_exact_f32(deform_attn_exact(v32, SHAPES, locs, w),
                               ms_deform_attn_plain(v32, SHAPES, locs, w))
@@ -152,21 +233,32 @@ def main():
     compare_quantize((codes, scales), int4_quantize_plain(vb, SHAPES))
     e_gather = compare_gather(int4_gather(codes, scales, SHAPES, locs, w),
                               int4_gather_plain(codes, scales, SHAPES, locs, w))
+    g_wide = torch.randn((CHECK_BATCH, v32.shape[1], H * D), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    e_bwd = {}
+    for inst, (val, bwd) in {"f32": (v32, "exact"), "bf16": (vb, "exact"),
+                             "bf16_grad": (vb, "bf16_grad")}.items():
+        kernel_fn, plain_fn = bwd_inputs(val, bwd)
+        e_bwd[inst] = compare_bwd(kernel_fn(val, locs, w, g_wide), plain_fn(val, locs, w, g_wide))
     torch.cuda.synchronize()
     log(f"[2] kernel vs plain (batch {CHECK_BATCH}, levels {SHAPES}, wide offsets): exact f32 "
         f"max|d| {e_f32:.3g} (tol {TOL_EXACT_F32}); exact bf16 rel {rel_bf16:.3g} "
         f"(tol {TOL_EXACT_BF16_REL}); int4_quantize codes+scales bit-equal; "
-        f"int4_gather max|d| {e_gather:.3g}, all within 1 bf16 ulp")
-    del v32, vb, locs, w, codes, scales
+        f"int4_gather max|d| {e_gather:.3g}, all within 1 bf16 ulp; deform_attn_bwd max|d| "
+        f"{ {k: f'{v:.3g}' for k, v in e_bwd.items()} } (f32 outputs within "
+        f"{bwd_mod.BWD_TOLERANCE} x max|plain|, bf16 dvalue within 1 bf16 ulp)")
+    del v32, vb, locs, w, codes, scales, g_wide
 
-    # capture the MSDA inputs that a forward hands to the kernels
+    # capture the MSDA inputs that a forward hands to the kernels, the
+    # first encoder layer's per (impl, value dtype)
     captured = {}
     orig_msda = layers_mod.ms_deform_attn
 
-    def capturing(value, shapes, locs, weights, impl=None):
-        if impl not in captured:
-            captured[impl] = (value.clone(), locs.clone(), weights.clone())
-        return orig_msda(value, shapes, locs, weights, impl=impl)
+    def capturing(value, shapes, locs, weights, impl=None, bwd="exact"):
+        key = (impl, value.dtype)
+        if key not in captured:
+            captured[key] = tuple(t.detach().clone() for t in (value, locs, weights))
+        return orig_msda(value, shapes, locs, weights, impl=impl, bwd=bwd)
 
     # --- (3) full-width serving, bf16, int4 ---
     B, h4, w4 = BATCH, IMG[0] // 4, IMG[1] // 4
@@ -207,9 +299,13 @@ def main():
     model32 = perturb_deform_kernels(flagship(device=dev, dtype=torch.float32, seed=0))
     img32 = images[:1].float()
     dec = model32.bbox_head.transformer_decoder
-    masks, flips = [], [0]
     set_deform_impl(model32, "exact")
-    dec.attn_mask_small = lambda *a: masks.append(type(dec).attn_mask_small(dec, *a)) or masks[-1]
+    # the plain run reuses the exact run's attention masks, so one
+    # borderline sigmoid < 0.5 bit cannot make the runs diverge; the bits
+    # it would have set differently are counted
+    masks = Replay(lambda *a: type(dec).attn_mask_small(dec, *a),
+                   lambda own, kept: int((own != kept).sum()))
+    dec.attn_mask_small = masks
     for fn in wrappers.values():
         fn.launches = 0
     layers_mod.ms_deform_attn = capturing
@@ -219,17 +315,7 @@ def main():
     torch.cuda.synchronize()
     exact_launches = deform_attn_exact.launches
     check(exact_launches == 6, f"exact launches {exact_launches}")
-    # the plain run reuses the exact run's attention masks, so one
-    # borderline sigmoid < 0.5 bit cannot make the runs diverge; the bits
-    # it would have set differently are counted
-    replay = iter(list(masks))
-
-    def replayed(*a):
-        own, kept = type(dec).attn_mask_small(dec, *a), next(replay)
-        flips[0] += int((own != kept).sum())
-        return kept
-
-    dec.attn_mask_small = replayed
+    masks.start_replay()
     set_deform_impl(model32, "plain")
     with torch.inference_mode():
         out_p = model32(img32)
@@ -247,7 +333,7 @@ def main():
     log(f"[4] f32 batch 1, exact kernel vs plain MSDA (TF32 off): max|d| "
         f"{ {k: f'{v:.3g}' for k, v in fwd_err.items()} } (tol {TOL_FORWARD_REL} x "
         f"max(1, max|plain|)); pair indices equal at {int(ok.sum())}/100 decided ranks; "
-        f"{flips[0]} attention-mask bits the plain run would set otherwise; "
+        f"{masks.flips} attention-mask bits the plain run would set otherwise; "
         f"exact launches {exact_launches}")
     del model32, out_e, out_p, masks
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -259,7 +345,8 @@ def main():
 
     kernels = []
 
-    def record(name, launches, kernel_fn, plain_fn, compare, in_t, flops, note, **where):
+    def record(name, launches, kernel_fn, plain_fn, compare, in_t, flops, note, phase=5,
+               **where):
         """Check the kernel against its plain version on the main path's
         inputs, time both, and add the kernel's entry (``where``: source,
         replaces) unless ``launches`` is None."""
@@ -279,7 +366,7 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": bound_by, "library_ms": None,
             })
-        log(f"[5] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
+        log(f"[{phase}] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
             f"{t_bytes:.4f}, ops {t_ops:.4f})")
         return out
@@ -289,14 +376,14 @@ def main():
     def tap_flops(lc):  # ~10 operations per (b, q, h, d, level, point)
         return 10 * lc.shape[0] * lc.shape[1] * H * D * L * P
 
-    v, lc, wt = captured["exact"]
+    v, lc, wt = captured[("exact", torch.float32)]
     record("deform_attn_exact", exact_launches, lambda: deform_attn_exact(v, SHAPES, lc, wt),
            lambda: ms_deform_attn_plain(v, SHAPES, lc, wt), compare_exact_f32, (v, lc, wt),
            tap_flops(lc), "f32 forward batch 1, encoder layer 0, max|d|",
            source="pairnet_torch/csrc/deform_attn_exact.cu",
            replaces="pairnet_tpu/ops/pallas_deform_attn_v6.py:86 (f32), "
                     "pairnet_tpu/ops/pallas_deform_attn_v7.py:88 (bf16)")
-    v, lc, wt = captured["int4"]
+    v, lc, wt = captured[("int4", torch.bfloat16)]
     # the exact kernel's bf16 instance (the v7 case) on the serving inputs;
     # checked and logged, no entry: the serving path runs the int4 kernels
     record("deform_attn_exact", None, lambda: deform_attn_exact(v, SHAPES, lc, wt),
@@ -316,9 +403,213 @@ def main():
            source="pairnet_torch/csrc/deform_attn_int4.cu",
            replaces="pairnet_tpu/ops/pallas_deform_attn_v16.py:106")
 
+    del model, images, out, preds, codes, scales, v, lc, wt
+    captured.clear()
+    torch.cuda.empty_cache()
+
+    # --- (6) full-width bf16 training through the MSDA kernels ---
+    from pairnet_torch.models.layers import MSDeformAttention
+    from pairnet_torch.train.trainer import to_device
+
+    captured_bwd = {}  # value dtype -> the backward's inputs of encoder layer 0
+    orig_bwd = bwd_mod.deform_attn_bwd
+
+    def capturing_bwd(value, shapes, locs, weights, g, bwd="exact"):
+        # the backward runs the layers last to first: the last call of a
+        # step is encoder layer 0's
+        captured_bwd[value.dtype] = tuple(t.detach().clone() for t in (value, locs, weights, g))
+        return orig_bwd(value, shapes, locs, weights, g, bwd)
+
+    # the wrapper counts its launches on the module's deform_attn_bwd
+    capturing_bwd.launches = orig_bwd.launches
+
+    plain_calls = collections.Counter()
+    plain_fns = [(msda_mod, "ms_deform_attn_plain"), (exact_mod, "ms_deform_attn_plain"),
+                 (bwd_mod, "ms_deform_attn_bwd_plain")]
+
+    def count_plain_calls(on):
+        """Count every call of a plain MSDA version while ``on``."""
+        for mod, name in plain_fns:
+            fn = getattr(mod, name)
+            if on:
+                def counted(*a, _fn=fn, _name=name, **k):
+                    plain_calls[_name] += 1
+                    return _fn(*a, **k)
+                counted.orig = fn
+                setattr(mod, name, counted)
+            else:
+                setattr(mod, name, fn.orig)
+
+    def reset_launches():
+        deform_attn_exact.launches = int4_quantize.launches = int4_gather.launches = 0
+        deform_attn_bwd.launches.clear()
+        plain_calls.clear()
+
+    def launches():
+        return {"deform_attn_exact": deform_attn_exact.launches,
+                "int4": int4_quantize.launches + int4_gather.launches,
+                "deform_attn_bwd": dict(deform_attn_bwd.launches), "plain": dict(plain_calls)}
+
+    def finite(metrics):
+        return all(bool(torch.isfinite(v)) for v in metrics.values())
+
+    model_t, state, step = train_setup(dev)  # bf16 compute, exact forward and backward
+    batch = to_device(train_batch(TRAIN_BATCH, IMG), dev)
+    head0 = model_t.bbox_head.rel_cls_embed.weight.detach().clone()
+    stem0 = model_t.backbone.conv1.weight.detach().clone()
+    layers_mod.ms_deform_attn, bwd_mod.deform_attn_bwd = capturing, capturing_bwd
+    m_warm = step(state, batch)  # warm-up; captures encoder layer 0's MSDA inputs
+    layers_mod.ms_deform_attn, bwd_mod.deform_attn_bwd = orig_msda, orig_bwd
+    torch.cuda.synchronize()
+    cum0 = float(state.cum_samples.sum())
+    reset_launches()
+    count_plain_calls(True)
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = [step(state, batch) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    train_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_launches = launches()
+    n = 6 * TRAIN_STEPS
+    check(train_launches == {"deform_attn_exact": n, "int4": 0, "deform_attn_bwd": {"bf16": n},
+                             "plain": {}}, f"training launches {train_launches}")
+    set_deform_bwd(model_t, "bf16_grad")
+    reset_launches()
+    metrics.append(step(state, batch))
+    torch.cuda.synchronize()
+    grad_launches = launches()
+    count_plain_calls(False)
+    check(grad_launches == {"deform_attn_exact": 6, "int4": 0, "deform_attn_bwd": {"bf16_grad": 6},
+                            "plain": {}}, f"bf16_grad step launches {grad_launches}")
+    for m in [m_warm] + metrics:
+        check(finite(m) and float(m["grad_norm"]) > 0, f"train metrics {m}")
+    check(not torch.equal(model_t.bbox_head.rel_cls_embed.weight, head0), "head weight moved")
+    check(torch.equal(model_t.backbone.conv1.weight, stem0), "frozen stem unchanged")
+    check(float(state.cum_samples.sum()) > cum0 > 0, "Seesaw counts grew")
+    msda_layers = [m for m in model_t.modules() if isinstance(m, MSDeformAttention)]
+    offs_grad = [float(m.sampling_offsets.weight.grad.abs().max()) for m in msda_layers]
+    check(len(msda_layers) == 6 and min(offs_grad) > 0,
+          f"sampling_offsets gradients of the encoder layers {offs_grad}")
+    last = {k: float(v) for k, v in metrics[-2].items()}
+    train_img_s = TRAIN_BATCH * 1000.0 / train_ms
+    log(f"[6] training batch {TRAIN_BATCH} bf16 at {IMG[0]}x{IMG[1]}: {train_ms:.1f} ms per step "
+        f"= {train_img_s:.2f} img/s, peak {peak_gib:.2f} GiB; launches in {TRAIN_STEPS} steps "
+        f"{train_launches}, bf16_grad step {grad_launches}; losses finite, grad_norm "
+        f"{[round(float(m['grad_norm']), 4) for m in metrics]}; head moved, stem unchanged; "
+        f"cum_samples {cum0:.0f} -> {float(state.cum_samples.sum()):.0f}; sampling_offsets "
+        f"grad max per layer {[f'{g:.3g}' for g in offs_grad]}; last exact-step losses {last}")
+    del model_t, state, step, metrics, m_warm, msda_layers
+    torch.cuda.empty_cache()
+
+    # --- (7) f32 train step: MSDA kernels vs plain MSDA ---
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch1 = to_device(train_batch(1, IMG), dev)
+    masks_r = Replay(None, lambda own, kept: int((own != kept).sum()))
+    pairs_r = Replay(None, lambda own, kept: sum(int((o != k).sum()) for o, k in zip(own, kept)))
+    fields = ("r_labels", "r_weights", "sub_ids", "obj_ids", "gt_importance", "query2gt")
+    targets_r = Replay(trainer_mod.pairnet_targets, lambda own, kept: sum(
+        int((getattr(own, f) != getattr(kept, f)).sum()) for f in fields))
+    orig_targets = trainer_mod.pairnet_targets
+    runs = {}
+    for impl in ("exact", "plain"):
+        model_f, state_f, step_f = train_setup(dev, compute_dtype=None)
+        set_deform_impl(model_f, impl)
+        dec, head = model_f.bbox_head.transformer_decoder, model_f.bbox_head
+        masks_r.fn = lambda *a, dec=dec: type(dec).attn_mask_small(dec, *a)
+        pairs_r.fn = lambda imp, head=head: type(head).pair_topk(head, imp)
+        dec.attn_mask_small, head.pair_topk = masks_r, pairs_r
+        trainer_mod.pairnet_targets = targets_r
+        if impl == "plain":
+            for r in (masks_r, pairs_r, targets_r):
+                r.start_replay()
+        reset_launches()
+        bwd_mod.deform_attn_bwd = capturing_bwd
+        m = {k: float(v) for k, v in step_f(state_f, batch1).items()}
+        bwd_mod.deform_attn_bwd = orig_bwd
+        trainer_mod.pairnet_targets = orig_targets
+        torch.cuda.synchronize()
+        grads = {f"{name}.{pn}": p.grad.detach().clone()
+                 for name, mod in model_f.named_modules() if isinstance(mod, MSDeformAttention)
+                 for pn, p in mod.named_parameters()}
+        runs[impl] = (m, grads, launches())
+        del model_f, state_f, step_f
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (m_k, g_k, l_k), (m_p, g_p, l_p) = runs["exact"], runs["plain"]
+    check(l_k["deform_attn_exact"] == 6 and l_k["deform_attn_bwd"] == {"f32": 6},
+          f"f32 kernel step launches {l_k}")
+    check(l_p["deform_attn_exact"] == 0 and not l_p["deform_attn_bwd"],
+          f"plain step launches {l_p}")
+    loss_err, grad_err, grad_rel = {}, {}, 0.0
+    for k, ref in m_p.items():
+        loss_err[k] = abs(m_k[k] - ref)
+        check(loss_err[k] <= TOL_TRAIN_REL * max(1.0, abs(ref)), f"f32 step {k}: {m_k[k]} vs {ref}")
+    check(len(g_k) == len(g_p) == 6 * 8, f"{len(g_k)} MSDA parameter gradients")
+    for k, ref in g_p.items():
+        d = float((g_k[k] - ref).abs().max())
+        scale = float(ref.abs().max())
+        grad_err[k] = d
+        grad_rel = max(grad_rel, d / max(scale, 1e-30))
+        check(d <= TOL_TRAIN_REL * scale, f"f32 step grad {k}: max|d| {d} (max {scale})")
+    flips = {"attention-mask bits": masks_r.flips, "pair indices": pairs_r.flips,
+             "target entries": targets_r.flips}
+    log(f"[7] f32 train step batch 1, MSDA kernels vs plain (TF32 off): losses max|d| "
+        f"{max(loss_err.values()):.3g}; {len(g_k)} MSDA parameter gradients max|d| "
+        f"{max(grad_err.values()):.3g}, largest relative to their max {grad_rel:.3g} (tol "
+        f"{TOL_TRAIN_REL} x max|plain| of each gradient); the plain run would have set "
+        f"otherwise: {flips}; kernel-run launches {l_k}")
+    del runs, g_k, g_p, batch1
+
+    # --- (8) the training kernels on the training paths' inputs ---
+    def bwd_ops(lc, value, bwd):
+        return BWD_OPS_PER_CORNER[bwd] * value.shape[3] * inside_corners(lc)
+
+    v, lc, wt = captured[("exact", torch.bfloat16)]
+    record("deform_attn_exact (bf16 values)", train_launches["deform_attn_exact"],
+           lambda: deform_attn_exact(v, SHAPES, lc, wt),
+           lambda: ms_deform_attn_plain(v, SHAPES, lc, wt), compare_exact_bf16, (v, lc, wt),
+           tap_flops(lc), f"bf16 training batch {TRAIN_BATCH}, encoder layer 0, rel", phase=8,
+           source="pairnet_torch/csrc/deform_attn_exact.cu",
+           replaces="pairnet_tpu/ops/pallas_deform_attn_v7.py:88")
+    kernels[-1]["launches_per_step"] = train_launches["deform_attn_exact"] / TRAIN_STEPS
+    bwd_where = {"source": "pairnet_torch/csrc/deform_attn_bwd.cu"}
+    rows_56 = ("pairnet_tpu/ops/pallas_deform_bwd2.py:55 (default VJP), "
+               "pairnet_tpu/ops/pallas_deform_attn_v6.py:264 (parity anchor)")
+    # (instance, value dtype, variant, launches, the steps they came from, path)
+    for inst, key, bwd, n_launch, steps, what in (
+            ("f32", torch.float32, "exact", l_k["deform_attn_bwd"].get("f32", 0), 1,
+             "f32 training batch 1"),
+            ("bf16", torch.bfloat16, "exact", train_launches["deform_attn_bwd"].get("bf16", 0),
+             TRAIN_STEPS, f"bf16 training batch {TRAIN_BATCH}"),
+            ("bf16_grad", torch.bfloat16, "bf16_grad",
+             grad_launches["deform_attn_bwd"].get("bf16_grad", 0), 1,
+             f"bf16 training batch {TRAIN_BATCH}")):
+        v, lc, wt, g = captured_bwd[key]
+        kernel_fn, plain_fn = bwd_inputs(v, bwd)
+        record(f"deform_attn_bwd ({inst})", n_launch, lambda: kernel_fn(v, lc, wt, g),
+               lambda: plain_fn(v, lc, wt, g), compare_bwd, (v, lc, wt, g), bwd_ops(lc, v, bwd),
+               f"{what}, encoder layer 0, max|d|", phase=8, **bwd_where,
+               replaces=("pairnet_tpu/ops/pallas_deform_bwd3.py:55" if inst == "bf16_grad"
+                         else rows_56))
+        kernels[-1]["launches_per_step"] = n_launch / steps
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
                                   "ms_per_batch": serve_ms, "img_per_s": img_per_s}}))
+    print(json.dumps({"training": {
+        "batch": TRAIN_BATCH, "hw": list(IMG), "compute_dtype": "bf16",
+        "msda": "exact forward, exact backward", "ms_per_step": train_ms,
+        "img_per_s": train_img_s, "peak_memory_gib": peak_gib,
+        "launches_per_step": {
+            "deform_attn_exact": train_launches["deform_attn_exact"] / TRAIN_STEPS,
+            "deform_attn_bwd": train_launches["deform_attn_bwd"]["bf16"] / TRAIN_STEPS},
+        "losses": last, "f32_kernel_vs_plain": {
+            "loss_max_abs_err": max(loss_err.values()),
+            "msda_grad_max_abs_err": max(grad_err.values()), "msda_grad_max_rel_err": grad_rel,
+            "replayed": flips}}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

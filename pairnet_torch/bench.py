@@ -1,11 +1,17 @@
-"""Serving benchmark of the port: Pair-Net R-50 sgdet inference on one GPU.
+"""Benchmarks of the port on one GPU: Pair-Net R-50 serving and training.
 
-Counterpart of ``bench.py::bench_eval``: the forward pass plus the
-post-processing (panoptic fusion and triplet ranking) of every image, at
-800x1344, batch 8, every float parameter and buffer in bf16, the int4 MSDA
-kernels. Timed with CUDA events; prints one JSON line. Needs a GPU::
+Serving, the counterpart of ``bench.py::bench_eval``: the forward pass plus
+the post-processing (panoptic fusion and triplet ranking) of every image,
+at 800x1344, batch 8, every float parameter and buffer in bf16, the int4
+MSDA kernels. Training (``--train``), the counterpart of
+``bench.py::bench_train``: the full train step (forward, on-device targets,
+losses, backward, clip, AdamW) at 800x1344, batch 4, bf16 compute over f32
+masters, the exact MSDA kernels forward and backward, on the seeded batch
+of ``bench.py`` (24 segments, 40 relations, 12544 points). Timed with CUDA
+events; prints one JSON line. Needs a GPU::
 
     python -m pairnet_torch.bench [--impl int4|exact] [--breakdown]
+    python -m pairnet_torch.bench --train [--breakdown]
 """
 
 from __future__ import annotations
@@ -14,12 +20,20 @@ import argparse
 import json
 import subprocess
 
+import numpy as np
 import torch
 
-from pairnet_torch.flagship import flagship, perturb_deform_kernels, resolve_device, set_deform_impl
+from pairnet_torch.flagship import (
+    flagship,
+    perturb_deform_kernels,
+    resolve_device,
+    set_deform_impl,
+)
 from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
 
 IMAGE_HW, BATCH, ITERS = (800, 1344), 8, 5
+TRAIN_BATCH, TRAIN_ITERS, NUM_POINTS = 4, 3, 12544
+NUM_CLASSES, NUM_RELATIONS = 133, 56
 
 
 def serve(model, images, num_things: int = 80):
@@ -79,16 +93,16 @@ def stage_ms(model, images) -> dict:
     return {n: a.elapsed_time(b) for n, a, b in zip(STAGE_NAMES, events, events[1:])}
 
 
-def device_profile(model, images, top: int = 12) -> dict:
-    """Kernel time of one served batch from ``torch.profiler`` (CUDA
+def device_profile(fn, top: int = 12) -> dict:
+    """Kernel time of one call of ``fn`` from ``torch.profiler`` (CUDA
     activity only): the sum over all kernels, and the ``top`` kernels by
     their own device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    serve(model, images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        serve(model, images)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -104,13 +118,122 @@ def device_profile(model, images, top: int = 12) -> dict:
     }
 
 
+def train_batch(batch_size: int, hw=IMAGE_HW, G: int = 24, R: int = 40, seed: int = 0) -> dict:
+    """The seeded host batch of ``bench.py::bench_train``: a normal image,
+    G segments with random labels and masks (pixels on with p 0.2, shipped
+    as bool), R random relations, all valid."""
+    H, W = hw
+    rng = np.random.default_rng(seed)
+    return {
+        "image": rng.normal(size=(batch_size, H, W, 3)).astype(np.float32),
+        "gt_labels": rng.integers(0, NUM_CLASSES, size=(batch_size, G)).astype(np.int32),
+        "gt_masks": rng.uniform(size=(batch_size, G, H // 4, W // 4)) > 0.8,
+        "gt_valid": np.ones((batch_size, G), bool),
+        "gt_rels": np.stack([rng.integers(0, G, (batch_size, R)),
+                             rng.integers(0, G, (batch_size, R)),
+                             rng.integers(1, NUM_RELATIONS, (batch_size, R))], -1).astype(np.int32),
+        "rel_valid": np.ones((batch_size, R), bool),
+    }
+
+
+def train_setup(device, compute_dtype=torch.bfloat16, on_phase=None):
+    """(model, state, step): the f32 flagship with perturbed deformable
+    kernels, the exact MSDA forward and backward, its AdamW state and the
+    train step."""
+    from pairnet_torch.train.optim import build_optimizer
+    from pairnet_torch.train.trainer import TrainState, make_train_step
+
+    model = set_deform_impl(perturb_deform_kernels(flagship(device=device)), "exact")
+    optimizer = build_optimizer(model)
+    state = TrainState(model, optimizer, NUM_RELATIONS)
+    step = make_train_step(model, optimizer, {"num_points": NUM_POINTS}, compute_dtype,
+                           on_phase=on_phase)
+    return model, state, step
+
+
+def time_train(step, state, batch, iters: int) -> tuple[float, int]:
+    """(milliseconds per train step by CUDA events over ``iters`` steps
+    after a warm-up, peak device bytes allocated during them)."""
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, torch.cuda.max_memory_allocated()
+
+
+def train_phase_ms(events: list, step, state, batch) -> dict:
+    """Device milliseconds of each phase of one train step: CUDA events
+    recorded by the step's ``on_phase`` hook into ``events``, after one
+    recorded at its start. Each span is the device timeline between two
+    boundaries, idle gaps (the Hungarian's host syncs) included."""
+    from pairnet_torch.train.trainer import PHASES
+
+    torch.cuda.synchronize()
+    events.clear()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(state, batch)
+    torch.cuda.synchronize()
+    marks = [start] + events
+    return {n: a.elapsed_time(b) for n, a, b in zip(PHASES, marks, marks[1:])}
+
+
+def train_main(breakdown: bool) -> dict:
+    from pairnet_torch.ops.hungarian import batched_hungarian
+    from pairnet_torch.train.trainer import to_device
+
+    device = resolve_device(None)
+    events = []
+
+    def record(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    _, state, step = train_setup(device, on_phase=record)
+    batch = to_device(train_batch(TRAIN_BATCH), device)
+    ms, peak = time_train(step, state, batch, TRAIN_ITERS)
+    (H, W), B = IMAGE_HW, TRAIN_BATCH
+    result = {
+        "metric": f"train_images_per_sec_pairnet_r50_{H}x{W}",
+        "value": B * 1000.0 / ms,
+        "unit": "img/s",
+        "ms_per_step": ms,
+        "batch": B,
+        "compute_dtype": "bf16",
+        "msda": "exact forward, exact backward",
+        "peak_memory_gib": peak / 2 ** 30,
+        "device": torch.cuda.get_device_name(device),
+        "gpu": gpu_name_and_power_limit(),
+    }
+    if breakdown:
+        syncs = batched_hungarian.syncs
+        result["phase_ms"] = train_phase_ms(events, step, state, batch)
+        result["hungarian_host_syncs_per_step"] = batched_hungarian.syncs - syncs
+        prof = device_profile(lambda: step(state, batch))
+        result["device_busy_share"] = prof["kernel_ms"] / ms
+        result["profile"] = prof
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", choices=("int4", "exact"), default="int4",
-                    help="MSDA kernels: int4 (bf16 serving default) or exact")
+                    help="serving MSDA kernels: int4 (bf16 serving default) or exact")
+    ap.add_argument("--train", action="store_true",
+                    help="time the train step instead of serving")
     ap.add_argument("--breakdown", action="store_true",
-                    help="also report device ms per stage and the profiler's kernel time")
+                    help="also report device ms per stage (per phase with --train) and the "
+                         "profiler's kernel time")
     args = ap.parse_args(argv)
+    if args.train:
+        return train_main(args.breakdown)
 
     device = resolve_device(None)
     (H, W), B = IMAGE_HW, BATCH
@@ -132,7 +255,7 @@ def main(argv=None) -> dict:
     }
     if args.breakdown:
         result["stage_ms"] = stage_ms(model, images)
-        prof = device_profile(model, images)
+        prof = device_profile(lambda: serve(model, images))
         result["device_busy_share"] = prof["kernel_ms"] / ms
         result["profile"] = prof
     print(json.dumps(result))

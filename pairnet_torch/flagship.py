@@ -22,6 +22,7 @@ from pairnet_torch.models.layers import (
     MultiheadAttention,
     deform_offsets_bias,
 )
+from pairnet_torch.ops.deform_attn_bwd import BWD_VARIANTS
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,10 +91,23 @@ def set_deform_impl(model: nn.Module, impl: str | None) -> nn.Module:
     return model
 
 
-def flagship(tiny: bool = False, device=None, dtype=torch.float32, seed: int = 0) -> PSGTr:
+def set_deform_bwd(model: nn.Module, bwd: str) -> nn.Module:
+    """Give every MSDeformAttention of ``model`` the MSDA backward ``bwd``
+    ("exact" or "bf16_grad")."""
+    if bwd not in BWD_VARIANTS:
+        raise ValueError(f"unknown MSDA backward {bwd!r}: expected one of {BWD_VARIANTS}")
+    for m in model.modules():
+        if isinstance(m, MSDeformAttention):
+            m.bwd = bwd
+    return model
+
+
+def flagship(tiny: bool = False, device=None, dtype=torch.float32, seed: int = 0,
+             relation_ffn_drop: float = 0.1) -> PSGTr:
     """Pair-Net R-50 with seeded weights, in eval mode, on ``device``
     (default CUDA). ``dtype=torch.bfloat16`` casts every float parameter and
-    buffer, frozen BN statistics included, as the JAX bf16 serving does."""
+    buffer, frozen BN statistics included, as the JAX bf16 serving does.
+    ``relation_ffn_drop`` is the Relation Fusion FFN's dropout in train mode."""
     device = resolve_device(device)
     with torch.device("meta"):  # allocate nothing until the device is known
         if tiny:
@@ -102,6 +116,7 @@ def flagship(tiny: bool = False, device=None, dtype=torch.float32, seed: int = 0
                 backbone.out_channels, num_classes=7, num_relations=5, num_obj_query=20,
                 num_rel_query=16, embed_dims=32, num_heads=4, num_decoder_layers=3,
                 num_relation_layers=2, pixel_decoder_layers=1,
+                relation_ffn_drop=relation_ffn_drop,
             )
         else:
             backbone = ResNet(depth=50)
@@ -109,6 +124,7 @@ def flagship(tiny: bool = False, device=None, dtype=torch.float32, seed: int = 0
                 backbone.out_channels, num_classes=133, num_relations=56, num_obj_query=100,
                 num_rel_query=100, embed_dims=256, num_heads=8, num_decoder_layers=9,
                 num_relation_layers=6, pixel_decoder_layers=6,
+                relation_ffn_drop=relation_ffn_drop,
             )
         model = PSGTr(backbone, head)
     model = model.to_empty(device=device)

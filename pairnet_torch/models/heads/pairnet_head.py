@@ -61,6 +61,12 @@ class PairNetHead(nn.Module):
             for _ in range(num_relation_layers)
         ])
 
+    def pair_topk(self, importance):
+        """Top-k of the flattened (Q, Q) importance: (sub_pos, obj_pos) (B, K)."""
+        B, Q, _ = importance.shape
+        topk_idx = importance.reshape(B, Q * Q).topk(self.num_rel_query, dim=-1).indices
+        return torch.div(topk_idx, Q, rounding_mode="floor"), topk_idx % Q
+
     def forward(self, feats):
         """feats: backbone (C2, C3, C4, C5) NCHW. Returns the prediction dict."""
         mask_features, ms_feats = self.pixel_decoder(feats)
@@ -74,8 +80,7 @@ class PairNetHead(nn.Module):
             self.query_embed.weight, self.level_embed.weight, self.cls_embed, self.mask_embed,
         )
         cls_pred, mask_pred, queries = dec["cls"], dec["mask"], dec["queries"]
-        B, Q, C = queries.shape
-        K = self.num_rel_query
+        B = queries.shape[0]
 
         # --- Pair Proposal Network ---
         sub_embed = self.sub_query_update(queries)
@@ -85,9 +90,7 @@ class PairNetHead(nn.Module):
         importance = torch.matmul(sub_embed.float(), obj_embed.float().transpose(1, 2))
         importance = self.update_importance(importance)  # (B, Q, Q)
 
-        topk_idx = importance.reshape(B, Q * Q).topk(K, dim=-1).indices
-        sub_pos = torch.div(topk_idx, Q, rounding_mode="floor")
-        obj_pos = topk_idx % Q
+        sub_pos, obj_pos = self.pair_topk(importance)
         rows = torch.arange(B, device=queries.device)[:, None]
         sub_query_feat = queries[rows, sub_pos]
         obj_query_feat = queries[rows, obj_pos]
@@ -101,15 +104,18 @@ class PairNetHead(nn.Module):
             rel_query = layer(rel_query, rel_query_pos, pair_feat, key_pos, None)
         rel_preds = self.rel_cls_embed(rel_query)
 
+        # the gathered class and mask predictions are detached, as in JAX
+        # (pairnet_head.py:166-170): loss_sub_cls/loss_obj_cls train nothing
+        cls_sg, mask_sg = cls_pred.detach(), mask_pred.detach()
         return {
             "cls": cls_pred,
             "mask": mask_pred,
             "rel": rel_preds,
             "importance": importance,
-            "sub": cls_pred[rows, sub_pos],
-            "obj": cls_pred[rows, obj_pos],
-            "sub_seg": mask_pred[rows, sub_pos],
-            "obj_seg": mask_pred[rows, obj_pos],
+            "sub": cls_sg[rows, sub_pos],
+            "obj": cls_sg[rows, obj_pos],
+            "sub_seg": mask_sg[rows, sub_pos],
+            "obj_seg": mask_sg[rows, obj_pos],
             "sub_pos": sub_pos,
             "obj_pos": obj_pos,
             "queries": queries,

@@ -89,7 +89,9 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(B, Lq, H, D).transpose(1, 2)
         k = k.reshape(B, Lk, H, D).transpose(1, 2)
         v = v.reshape(B, Lk, H, D).transpose(1, 2)
-        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(D))
+        # f32 products and output, as JAX's preferred_element_type=f32: a
+        # bf16 matmul would round the logits to bf16 before the softmax
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
         if attn_mask is not None:
             logits = logits.masked_fill(attn_mask, -1e9)
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
@@ -158,13 +160,15 @@ class MSDeformAttention(nn.Module):
 
     The residual is added here (mmcv adds the identity inside the module).
     ``impl`` picks the MSDA implementation (see ``ops/deform_attn.py``);
-    None means the device default.
+    None means the device default. ``bwd`` picks the backward variant,
+    "exact" or "bf16_grad" (see ``ops/deform_attn_bwd.py``).
     """
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=3, num_points=4):
         super().__init__()
         self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
         self.impl: str | None = None
+        self.bwd = "exact"
         C = embed_dims
         self.sampling_offsets = nn.Linear(C, num_heads * num_levels * num_points * 2)
         self.attention_weights = nn.Linear(C, num_heads * num_levels * num_points)
@@ -190,7 +194,7 @@ class MSDeformAttention(nn.Module):
         locs = reference_points[:, :, None, :, None, :].float() + offsets.float() / normalizer[
             None, None, None, :, None, :
         ]
-        out = ms_deform_attn(v, spatial_shapes, locs, attn, impl=self.impl)
+        out = ms_deform_attn(v, spatial_shapes, locs, attn, impl=self.impl, bwd=self.bwd)
         out = self.output_proj(out.to(identity.dtype))
         return identity + out
 

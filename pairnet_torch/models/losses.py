@@ -1,0 +1,93 @@
+"""Loss functions of the Pair-Net training step (fixed shapes, mask-weighted).
+
+Counterpart of ``pairnet_tpu/models/losses.py`` (the focal losses wait for
+the heads that use them):
+
+* Seesaw CE (mmdet SeesawLoss, p=0.8 q=2.0) for relation classification,
+  with the running per-class sample counts carried as ``cum_samples``;
+* weighted softmax CE (mmdet CrossEntropyLoss) for the class losses;
+* BCE-with-logits with a pos_weight for the importance matrix;
+* point-sampled mask BCE and naive dice for the optional segmentation losses.
+
+Reductions are weighted means, ``sum(loss * w) / max(sum(w), eps)``, so
+padded slots never contribute. Every loss computes in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _wmean(x, w, eps=1e-7):
+    return torch.sum(x * w) / torch.clamp_min(torch.sum(w), eps)
+
+
+def softmax_ce(logits, labels, weights, class_weight=None):
+    """Weighted-mean softmax cross entropy; labels are clipped for padded
+    slots. With ``class_weight`` the mean is normalized by the summed
+    per-sample class weights, as ``F.cross_entropy(weight=...)`` does."""
+    C = logits.shape[-1]
+    labels_safe = labels.clamp(0, C - 1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
+    if class_weight is not None:
+        cw = class_weight[labels_safe]
+        return torch.sum(nll * cw * weights) / torch.clamp_min(torch.sum(cw * weights), 1e-7)
+    return _wmean(nll, weights)
+
+
+def seesaw_ce(logits, labels, weights, cum_samples, p=0.8, q=2.0, eps=1e-2):
+    """mmdet seesaw_ce_loss: returns (loss, updated cum_samples).
+
+    The counts are updated before the weights are computed (mmdet's
+    SeesawLoss.forward updates its buffer first), and the compensation
+    factor reads detached scores."""
+    C = logits.shape[-1]
+    labels_safe = labels.clamp(0, C - 1).long()
+    gt_onehot = F.one_hot(labels_safe, C).float()
+    cum_samples = cum_samples + (gt_onehot * weights[..., None]).sum(dim=0)
+
+    seesaw = torch.ones((labels_safe.shape[0], C), device=logits.device)
+    if p > 0:
+        cs = cum_samples.clamp_min(1.0)
+        ratio = cs[None, :] / cs[:, None]  # (C, C): N_j / N_i
+        mitig = torch.where(ratio < 1.0, torch.pow(ratio, p), torch.ones_like(ratio))
+        seesaw = seesaw * mitig[labels_safe]
+    if q > 0:
+        scores = torch.softmax(logits.detach().float(), dim=-1)
+        self_scores = torch.gather(scores, -1, labels_safe[:, None])
+        score_ratio = scores / self_scores.clamp_min(eps)
+        comp = torch.where(score_ratio > 1.0, torch.pow(score_ratio, q),
+                           torch.ones_like(score_ratio))
+        seesaw = seesaw * comp
+
+    adj_logits = logits.float() + torch.log(seesaw) * (1.0 - gt_onehot)
+    logp = torch.log_softmax(adj_logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels_safe[:, None])[:, 0]
+    return _wmean(nll, weights), cum_samples
+
+
+def bce_with_logits_pos_weight(logits, targets, pos_weight):
+    """``BCEWithLogitsLoss(pos_weight=...)``, mean over all elements."""
+    x = logits.float()
+    t = targets.float()
+    loss = -(pos_weight * t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
+    return loss.mean()
+
+
+def sigmoid_bce(logits, targets):
+    """Elementwise BCE-with-logits (no reduction)."""
+    x = logits.float()
+    t = targets.float()
+    return -(t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
+
+
+def naive_dice_loss(pred_logits, targets, weights, eps=1.0):
+    """mmdet DiceLoss(naive_dice=True, activate=True, eps=1.0) over the last
+    axis, weighted mean over the rows."""
+    p = torch.sigmoid(pred_logits.float())
+    t = targets.float()
+    num = 2.0 * torch.sum(p * t, dim=-1)
+    den = torch.sum(p, dim=-1) + torch.sum(t, dim=-1)
+    return _wmean(1.0 - (num + eps) / (den + eps), weights)

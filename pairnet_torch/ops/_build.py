@@ -20,7 +20,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("deform_attn_exact", "deform_attn_int4")
+SOURCES = ("deform_attn_exact", "deform_attn_int4", "deform_attn_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -97,3 +97,9 @@ def check(status: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code (cudaGetLastError)."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+
+
+def host_shapes(spatial_shapes):
+    """(h, w) pairs as a host int array for the C launchers."""
+    flat = [int(v) for hw in spatial_shapes for v in hw]
+    return (ctypes.c_int * len(flat))(*flat)

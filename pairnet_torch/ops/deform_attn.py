@@ -16,7 +16,12 @@ Implementations (``impl``):
   "exact" -- CUDA kernel, f32 or bf16 values, f32 output (default on CUDA)
   "int4"  -- CUDA int4 quantize + gather, bf16 output (bf16 serving)
   "plain" -- :func:`ms_deform_attn_plain`, plain PyTorch, f32 output
-CPU tensors always take "plain"; on CUDA "plain" runs only when asked for.
+CPU tensors always take the plain forward; on CUDA "plain" runs only when
+asked for. "exact" and "int4" are autograd Functions whose backward is the
+MSDA backward variant ``bwd`` ("exact" or "bf16_grad",
+``ops/deform_attn_bwd.py``): the kernel on CUDA, its plain version on CPU,
+where the exact Function stands in for every impl but "plain" (which
+differentiates through :func:`ms_deform_attn_plain` itself).
 """
 
 from __future__ import annotations
@@ -84,6 +89,18 @@ def ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_we
     return acc.reshape(B, Q, H * D)
 
 
+def bf16_ulps_off(out, ref, floor=2.0 ** -10):
+    """Number of entries of ``out`` more than one bf16 ulp (8 significant
+    bits) from ``ref``: the tolerance of a kernel's bf16 output against its
+    plain version. The ulp is taken at the larger magnitude of the two,
+    floored at ``floor``, because near 0 the two f32 sums differ by
+    reassociation alone (~1e-7 of the summed terms)."""
+    out, ref = out.float(), ref.float()
+    mag = torch.maximum(out.abs(), ref.abs()).clamp_min(floor)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
+    return int(((out - ref).abs() > ulp).sum())
+
+
 def check_inputs(value, spatial_shapes, locs, weights):
     """Raise unless the four arguments have the MSDA layout."""
     B, S, H, D = value.shape
@@ -101,21 +118,23 @@ def check_inputs(value, spatial_shapes, locs, weights):
 
 
 def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
-                   impl: str | None = None):
+                   impl: str | None = None, bwd: str = "exact"):
     """Batched MSDA (see module doc). ``impl=None`` means "exact" on CUDA."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if impl is not None and impl not in IMPLS:
         raise ValueError(f"unknown ms_deform_attn impl {impl!r}: expected one of {IMPLS}")
-    if value.device.type == "cpu" or impl == "plain":
+    if impl == "plain":
         return ms_deform_attn_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
-    if impl == "int4":
+    if impl == "int4" and value.device.type != "cpu":
         from pairnet_torch.ops.deform_attn_int4 import ms_deform_attn_int4
 
         return ms_deform_attn_int4(
-            value, spatial_shapes, sampling_locations, attention_weights
+            value, spatial_shapes, sampling_locations, attention_weights, bwd
         )
-    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops.deform_attn_exact import ms_deform_attn_exact
 
-    return deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weights)
+    return ms_deform_attn_exact(
+        value, spatial_shapes, sampling_locations, attention_weights, bwd
+    )

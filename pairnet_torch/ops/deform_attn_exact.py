@@ -1,4 +1,5 @@
-"""Wrapper of the exact MSDA CUDA kernel (``csrc/deform_attn_exact.cu``).
+"""Wrapper of the exact MSDA CUDA kernel (``csrc/deform_attn_exact.cu``) and
+its autograd Function.
 
 Replaces ``pairnet_tpu/ops/pallas_deform_attn_v6.py::_kernel`` (f32 values)
 and ``pairnet_tpu/ops/pallas_deform_attn_v7.py::_kernel`` (bf16 values). The
@@ -7,6 +8,11 @@ kernel is bound by bytes on an H100; see the source note.
 On a CPU tensor the wrapper runs the plain version,
 :func:`pairnet_torch.ops.deform_attn.ms_deform_attn_plain`. On a CUDA
 tensor it launches the kernel or raises.
+
+:func:`ms_deform_attn_exact` is the differentiable entry, the counterpart of
+the ``custom_vjp`` of ``ms_deform_attn_pallas_v6``/``_v7``: an
+:class:`~pairnet_torch.ops.deform_attn_bwd.MSDAFunction`, whose backward is
+the backward kernel on CUDA and its plain version on CPU.
 """
 
 from __future__ import annotations
@@ -18,11 +24,13 @@ import torch
 
 from pairnet_torch.ops import _build
 from pairnet_torch.ops.deform_attn import check_inputs, ms_deform_attn_plain
+from pairnet_torch.ops.deform_attn_bwd import MSDAFunction
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
 _FN = {torch.float32: "deform_attn_exact_f32", torch.bfloat16: "deform_attn_exact_bf16"}
+
 
 @functools.cache
 def _lib():
@@ -31,12 +39,6 @@ def _lib():
         getattr(lib, name).argtypes = _ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
     return lib
-
-
-def host_shapes(spatial_shapes):
-    """(h, w) pairs as a host int array for the C launchers."""
-    flat = [int(v) for hw in spatial_shapes for v in hw]
-    return (ctypes.c_int * len(flat))(*flat)
 
 
 def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weights):
@@ -55,7 +57,7 @@ def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weigh
     B, S, H, D = value.shape
     Q, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
     out = torch.empty((B, Q, H * D), device=value.device, dtype=torch.float32)
-    hw = host_shapes(spatial_shapes)
+    hw = _build.host_shapes(spatial_shapes)
     fn = getattr(_lib(), _FN[value.dtype])
     with torch.cuda.device(value.device):
         status = fn(
@@ -69,3 +71,12 @@ def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weigh
 
 
 deform_attn_exact.launches = 0
+
+
+def ms_deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weights,
+                         bwd: str = "exact"):
+    """Differentiable exact MSDA, f32 output (B, Q, H * D); ``bwd`` is the
+    backward variant (see :mod:`pairnet_torch.ops.deform_attn_bwd`)."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDAFunction.apply(deform_attn_exact, value, sampling_locations, attention_weights,
+                              spatial_shapes, bwd)

@@ -13,6 +13,12 @@ Both kernels are bound by bytes on an H100; see the source note.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
+
+:func:`ms_deform_attn_int4` is differentiable, as the ``custom_vjp`` of
+``ms_deform_attn_pallas_v16`` is: an
+:class:`~pairnet_torch.ops.deform_attn_bwd.MSDAFunction` that saves the
+full-precision value (not the codes), the locations and the weights, and
+differentiates the exact MSDA on those (``pallas_deform_attn_v16.py:343-352``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from pairnet_torch.ops import _build
 from pairnet_torch.ops.deform_attn import check_inputs, level_starts, ms_deform_attn_plain
-from pairnet_torch.ops.deform_attn_exact import host_shapes
+from pairnet_torch.ops.deform_attn_bwd import MSDAFunction
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,18 +77,6 @@ def int4_gather_plain(codes, scales, spatial_shapes, sampling_locations, attenti
     return out.to(torch.bfloat16)
 
 
-def bf16_ulps_off(out, ref):
-    """Number of entries of ``out`` more than one bf16 ulp (8 significant
-    bits) from ``ref``: the tolerance of :func:`int4_gather` against its
-    plain version. The ulp is taken at the larger magnitude of the two,
-    floored at 2^-10, because near 0 the two f32 sums differ by
-    reassociation alone (~1e-7 of the summed terms)."""
-    out, ref = out.float(), ref.float()
-    mag = torch.maximum(out.abs(), ref.abs()).clamp_min(2.0 ** -10)
-    ulp = torch.pow(2.0, torch.floor(torch.log2(mag)) - 7)
-    return int(((out - ref).abs() > ulp).sum())
-
-
 def int4_quantize(value, spatial_shapes):
     """Per-(b, h, level, d) int4 quantization of the value plane; bf16
     values on the card (the plain version also takes f32)."""
@@ -101,7 +95,7 @@ def int4_quantize(value, spatial_shapes):
     amax = torch.zeros((B, L, H, D), dtype=torch.int32, device=value.device)
     codes = torch.empty((B, S, H, D), dtype=torch.int8, device=value.device)
     scales = torch.empty((B, H, L, D), dtype=torch.float32, device=value.device)
-    hw = host_shapes(spatial_shapes)
+    hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(value.device):
         status = _lib().int4_quantize_bf16(
             value.data_ptr(), amax.data_ptr(), codes.data_ptr(), scales.data_ptr(),
@@ -134,7 +128,7 @@ def int4_gather(codes, scales, spatial_shapes, sampling_locations, attention_wei
     weights = attention_weights.float().contiguous()
     Q, P = locs.shape[1], locs.shape[4]
     out = torch.empty((B, Q, H * D), dtype=torch.bfloat16, device=codes.device)
-    hw = host_shapes(spatial_shapes)
+    hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(codes.device):
         status = _lib().int4_gather(
             codes.data_ptr(), scales.data_ptr(), locs.data_ptr(), weights.data_ptr(),
@@ -150,7 +144,15 @@ int4_quantize.launches = 0
 int4_gather.launches = 0
 
 
-def ms_deform_attn_int4(value, spatial_shapes, sampling_locations, attention_weights):
-    """int4 serving MSDA: quantize, then gather. bf16 (B, Q, H * D)."""
+def _int4_forward(value, spatial_shapes, locs, weights):
     codes, scales = int4_quantize(value, spatial_shapes)
-    return int4_gather(codes, scales, spatial_shapes, sampling_locations, attention_weights)
+    return int4_gather(codes, scales, spatial_shapes, locs, weights)
+
+
+def ms_deform_attn_int4(value, spatial_shapes, sampling_locations, attention_weights,
+                        bwd: str = "exact"):
+    """int4 serving MSDA: quantize, then gather. bf16 (B, Q, H * D).
+    Differentiable through the ``bwd`` variant of the MSDA backward."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return MSDAFunction.apply(_int4_forward, value, sampling_locations, attention_weights,
+                              spatial_shapes, bwd)

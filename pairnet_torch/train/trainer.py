@@ -1,0 +1,284 @@
+"""Training: the train step, the val step and the epoch runner.
+
+Counterpart of ``pairnet_tpu/train/trainer.py`` on one device:
+
+* :class:`TrainState`: step, the f32 master model, its AdamW optimizer, the
+  Seesaw ``cum_samples`` and a generator seeded 10086 (the reference's seed);
+* :func:`make_train_step`: forward in train mode, on-device targets, the
+  Pair-Net losses, backward, optax's global-norm clip (over every gradient,
+  the frozen stem's included) and the AdamW step. With
+  ``compute_dtype=torch.bfloat16`` the forward runs on bf16 copies of every
+  f32 parameter and buffer and a bf16 image, and its outputs are cast back
+  to f32 before the loss; autograd through the casts returns f32 gradients
+  to the f32 masters;
+* :class:`Trainer`: ``fit`` / ``train_epoch`` / ``val_epoch``, checkpoints
+  with ``torch.save`` and keep-rotation, ``resume``, and the NaN guard
+  (``PAIRNET_DEBUG_NANS``).
+
+Randomness: each step draws two seeds from the state's generator, one for
+the mask-cost sampling points and one for the device's default generator,
+which dropout reads, seeded inside ``torch.random.fork_rng``.
+The loss of a step never reaches the host inside the step; the target
+building's Hungarian solver reads its loop flags there (see
+``ops/hungarian.py``).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import time
+from pathlib import Path
+from typing import Any, Callable
+
+import torch
+from torch.func import functional_call
+
+from pairnet_torch.models.heads.pairnet_loss import pairnet_loss, pairnet_targets
+from pairnet_torch.train.optim import GRAD_CLIP, clip_by_global_norm, set_lr
+
+logger = logging.getLogger("pairnet_torch")
+SEED = 10086
+
+
+class TrainState:
+    """Everything a step reads and advances. ``model`` holds the f32 master
+    weights; ``generator`` is a CPU generator, so drawing seeds from it
+    needs no device sync."""
+
+    def __init__(self, model, optimizer, num_relations: int, seed: int = SEED):
+        device = next(model.parameters()).device
+        self.step = 0
+        self.model = model
+        self.optimizer = optimizer
+        self.cum_samples = torch.zeros((num_relations,), device=device)
+        self.generator = torch.Generator().manual_seed(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.cum_samples.device
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "cum_samples": self.cum_samples,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.step = int(sd["step"])
+        self.model.load_state_dict(sd["model"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.cum_samples = sd["cum_samples"].to(self.device)
+        self.generator.set_state(sd["generator"].cpu())
+
+
+def _draw_seeds(generator, n: int) -> list[int]:
+    return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
+
+
+def sample_points(batch_size: int, num_points: int, seed: int, device) -> torch.Tensor:
+    """(B, P, 2) uniform points in [0, 1] for the mask costs."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((batch_size, num_points, 2), generator=g, device=device)
+
+
+def _upcast_masks(batch: dict) -> dict:
+    """The loader ships bool mask canvases; the losses want f32."""
+    if batch["gt_masks"].dtype == torch.bool:
+        batch = dict(batch, gt_masks=batch["gt_masks"].float())
+    return batch
+
+
+def forward(model, image, compute_dtype=None):
+    """The model's forward, in ``compute_dtype`` if given: bf16 copies of
+    every f32 parameter and buffer, a bf16 image, f32 outputs."""
+    if compute_dtype is None:
+        return model(image)
+    tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    cast = {n: t.to(compute_dtype) if t.dtype == torch.float32 else t for n, t in tensors.items()}
+    out = functional_call(model, cast, (image.to(compute_dtype),))
+    return {k: v.float() if v.dtype == compute_dtype else v for k, v in out.items()}
+
+
+PHASES = ("forward", "targets", "loss", "backward", "optimizer")
+
+
+def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_dtype=None,
+                    schedule: Callable[[int], float] | None = None,
+                    on_phase: Callable[[str], None] | None = None):
+    """The train step ``(state, batch) -> metrics``: advances ``state`` in
+    place and returns the losses and ``grad_norm`` (the pre-clip global
+    norm) as device tensors. ``batch`` holds device tensors: ``image``
+    (B, H, W, 3) and the padded GT (``gt_labels``, ``gt_masks``,
+    ``gt_valid``, ``gt_rels``, ``rel_valid``). ``schedule`` maps the step
+    to the base lr; without it the optimizer's lr stays as built.
+    ``on_phase(name)`` is called at the end of each of ``PHASES`` (a
+    profiling hook: the bench records a CUDA event there)."""
+    loss_kwargs = dict(loss_kwargs or {})
+    num_points = loss_kwargs.pop("num_points", 12544)
+    params = list(model.parameters())
+    mark = on_phase or (lambda name: None)
+
+    def train_step(state: TrainState, batch: dict) -> dict:
+        batch = _upcast_masks(batch)
+        image = batch["image"]
+        points_seed, dropout_seed = _draw_seeds(state.generator, 2)
+        points = sample_points(image.shape[0], num_points, points_seed, image.device)
+        if schedule is not None:
+            set_lr(optimizer, schedule(state.step))
+        model.train()
+        devices = [image.device] if image.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices, device_type="cuda"):
+            if devices:
+                with torch.cuda.device(image.device):
+                    torch.cuda.manual_seed(dropout_seed)
+            else:
+                torch.random.default_generator.manual_seed(dropout_seed)
+            out = forward(model, image, compute_dtype)
+        mark("forward")
+        targets = pairnet_targets(out, batch, points)
+        mark("targets")
+        losses, new_cum = pairnet_loss(out, batch, points, state.cum_samples, targets=targets,
+                                       **loss_kwargs)
+        mark("loss")
+        optimizer.zero_grad(set_to_none=False)
+        losses["loss_total"].backward()
+        mark("backward")
+        for p in params:  # a parameter the loss never reads has gradient 0, as in JAX
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grad_norm = clip_by_global_norm([p.grad for p in params], GRAD_CLIP)
+        optimizer.step()
+        mark("optimizer")
+        state.cum_samples = new_cum
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    return train_step
+
+
+def make_val_step(model, loss_kwargs: dict | None = None):
+    """The val step ``(state, batch) -> losses``: deterministic f32 forward,
+    the same losses, no gradient and no change to the state. Its points
+    come from a copy of the state's generator."""
+    loss_kwargs = dict(loss_kwargs or {})
+    num_points = loss_kwargs.pop("num_points", 12544)
+
+    @torch.no_grad()
+    def val_step(state: TrainState, batch: dict) -> dict:
+        batch = _upcast_masks(batch)
+        image = batch["image"]
+        g = torch.Generator().set_state(state.generator.get_state())
+        points = sample_points(image.shape[0], num_points, _draw_seeds(g, 1)[0], image.device)
+        model.eval()
+        losses, _ = pairnet_loss(model(image), batch, points, state.cum_samples, **loss_kwargs)
+        return losses
+
+    return val_step
+
+
+def to_device(batch: dict, device) -> dict:
+    """A host batch (numpy arrays) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+class Trainer:
+    """Epoch runner on one device: train, optional val pass and eval hook,
+    checkpoints with keep-rotation, resume. Trains ``state.model`` with
+    ``state.optimizer`` and advances ``state`` in place."""
+
+    def __init__(self, state: TrainState, work_dir: str, loss_kwargs: dict | None = None,
+                 log_interval: int = 50, ckpt_interval_epochs: int = 1,
+                 max_keep_ckpts: int = 15, compute_dtype=None,
+                 schedule: Callable[[int], float] | None = None):
+        self.state = state
+        self.ckpt_dir = Path(work_dir) / "ckpts"
+        self.log_interval = log_interval
+        self.ckpt_interval_epochs = ckpt_interval_epochs
+        self.max_keep_ckpts = max_keep_ckpts
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self._step_fn = make_train_step(state.model, state.optimizer, loss_kwargs, compute_dtype,
+                                        schedule)
+        self._val_fn = make_val_step(state.model, loss_kwargs)
+
+    def _ckpts(self) -> list[tuple[int, Path]]:
+        found = []
+        for p in self.ckpt_dir.glob("epoch_*.pt"):
+            m = re.fullmatch(r"epoch_(\d+)\.pt", p.name)
+            if m:
+                found.append((int(m.group(1)), p))
+        return sorted(found)
+
+    def resume(self) -> int:
+        """Load the latest checkpoint if there is one; returns its epoch."""
+        ckpts = self._ckpts()
+        if not ckpts:
+            return 0
+        epoch, path = ckpts[-1]
+        sd = torch.load(path, map_location=self.state.device, weights_only=False)
+        self.state.load_state_dict(sd["state"])
+        logger.info("resumed from %s", path)
+        return epoch
+
+    def save(self, epoch: int) -> Path:
+        """Write the state as ``ckpts/epoch_<n>.pt``, keeping the newest
+        ``max_keep_ckpts``."""
+        path = self.ckpt_dir / f"epoch_{epoch}.pt"
+        tmp = path.with_suffix(".tmp")
+        torch.save({"epoch": epoch, "state": self.state.state_dict()}, tmp)
+        os.replace(tmp, path)
+        for _, old in self._ckpts()[: -self.max_keep_ckpts]:
+            old.unlink()
+        return path
+
+    def train_epoch(self, loader, epoch: int) -> dict:
+        t0 = time.time()
+        last = {}
+        nan_check = bool(os.environ.get("PAIRNET_DEBUG_NANS"))
+        for i, batch in enumerate(loader):
+            batch = to_device(batch, self.state.device)
+            metrics = self._step_fn(self.state, batch)
+            if nan_check:
+                bad = {k: float(v) for k, v in metrics.items() if not float(v) == float(v)}
+                if bad:
+                    raise FloatingPointError(f"NaN losses at epoch {epoch} iter {i}: {bad}")
+            if (i + 1) % self.log_interval == 0 or i == 0:
+                last = {k: float(v) for k, v in metrics.items()}
+                logger.info("epoch %d iter %d time %.3fs %s", epoch, i + 1,
+                            (time.time() - t0) / (i + 1),
+                            " ".join(f"{k}={v:.4f}" for k, v in last.items()))
+        return last
+
+    def val_epoch(self, loader, epoch: int) -> dict:
+        """Validation-loss pass (the reference's ('val', 1) workflow leg)."""
+        sums: dict = {}
+        n = 0
+        for batch in loader:
+            losses = self._val_fn(self.state, to_device(batch, self.state.device))
+            for k, v in losses.items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+        means = {f"val_{k}": v / max(n, 1) for k, v in sums.items()}
+        logger.info("epoch %d val %s", epoch, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
+        return means
+
+    def fit(self, loader_fn: Callable[[int], Any], max_epochs: int,
+            val_loader_fn: Callable[[int], Any] | None = None,
+            eval_hook: Callable[[TrainState, int], dict] | None = None,
+            eval_interval: int = 1) -> dict:
+        """Per epoch: train, then the optional val pass, a checkpoint every
+        ``ckpt_interval_epochs``, then the optional eval hook every
+        ``eval_interval`` epochs. Starts from the latest checkpoint."""
+        start = self.resume()
+        last = {}
+        for epoch in range(start, max_epochs):
+            last = self.train_epoch(loader_fn(epoch), epoch)
+            if val_loader_fn is not None:
+                last.update(self.val_epoch(val_loader_fn(epoch), epoch))
+            if (epoch + 1) % self.ckpt_interval_epochs == 0:
+                self.save(epoch + 1)
+            if eval_hook is not None and (epoch + 1) % eval_interval == 0:
+                last.update(eval_hook(self.state, epoch))
+        return last

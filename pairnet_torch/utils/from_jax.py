@@ -91,6 +91,51 @@ def _module_leaves(module: nn.Module):
             yield n, "constants", n, None
 
 
+def tensor_leaves(model: nn.Module, prefix: str = ""):
+    """For every parameter and buffer of ``model``: (port tensor name,
+    collection, the flax leaf paths it is made of, numpy leaves -> torch
+    layout). A packed attention in_proj is made of three leaves
+    (q_proj, k_proj, v_proj); every other tensor of one."""
+    T = lambda a: a.T  # noqa: E731
+    for mname, module in model.named_modules():
+        base = flax_path((prefix + mname).rstrip("."))
+        dst_prefix = f"{mname}." if mname else ""
+        if isinstance(module, MultiheadAttention):
+            for tname, leaf, fn in (("in_proj_weight", "kernel", T),
+                                    ("in_proj_bias", "bias", None)):
+                paths = [base + (p, leaf) for p in ("q_proj", "k_proj", "v_proj")]
+                yield (dst_prefix + tname, "params", paths,
+                       lambda arrs, fn=fn: np.concatenate([fn(a) if fn else a for a in arrs]))
+            continue
+        for tname, col, leaf, fn in _module_leaves(module):
+            yield (dst_prefix + tname, col, [base + ((leaf,) if leaf else ())],
+                   lambda arrs, fn=fn: fn(arrs[0]) if fn else arrs[0])
+
+
+def port_arrays(model: nn.Module, trees: dict, prefix: str = "") -> dict:
+    """Port tensor name -> numpy array in the port's layout, for every tensor
+    whose collection is a key of ``trees`` (``{"params": ..., "constants":
+    ...}`` flax trees with numpy leaves). Raises on a missing leaf and on a
+    leaf of those collections, under ``prefix``, that no tensor uses."""
+    flat = {(col,) + path: np.asarray(v)
+            for col, tree in trees.items() for path, v in _leaves(tree)}
+    used, out = set(), {}
+    for name, col, paths, fn in tensor_leaves(model, prefix):
+        if col not in trees:
+            continue
+        keys = [(col,) + p for p in paths]
+        for key in keys:
+            if key not in flat:
+                raise KeyError(f"JAX variables have no leaf {'/'.join(key)}")
+        used.update(keys)
+        out[name] = np.ascontiguousarray(fn([flat[k] for k in keys]))
+    scope = flax_path(prefix.rstrip(".")) if prefix else ()
+    unused = [k for k in flat if k[1 : 1 + len(scope)] == scope and k not in used]
+    if unused:
+        raise KeyError(f"JAX leaves not loaded: {sorted('/'.join(k) for k in unused)}")
+    return out
+
+
 def load_jax_variables(model: nn.Module, variables: dict, prefix: str = "") -> nn.Module:
     """Copy the flax ``variables`` into ``model`` in place and return it.
 
@@ -99,46 +144,64 @@ def load_jax_variables(model: nn.Module, variables: dict, prefix: str = "") -> n
     is one of its submodules; ``variables`` is then still rooted at the
     full model's tree.
     """
-    flat = {
-        (col,) + path: np.asarray(v)
-        for col in ("params", "constants")
-        for path, v in _leaves(variables.get(col, {}))
-    }
-    used = set()
-    filled = set()
-
-    def take(key):
-        if key not in flat:
-            raise KeyError(f"JAX variables have no leaf {'/'.join(key)}")
-        used.add(key)
-        return flat[key]
-
-    with torch.no_grad():
-        for mname, module in model.named_modules():
-            full = (prefix + mname).rstrip(".")
-            base = flax_path(full)
-            dst_prefix = f"{mname}." if mname else ""
-            if isinstance(module, MultiheadAttention):
-                qkv = [take(("params",) + base + (p, "kernel")).T for p in ("q_proj", "k_proj", "v_proj")]
-                bias = [take(("params",) + base + (p, "bias")) for p in ("q_proj", "k_proj", "v_proj")]
-                module.in_proj_weight.copy_(torch.from_numpy(np.concatenate(qkv)))
-                module.in_proj_bias.copy_(torch.from_numpy(np.concatenate(bias)))
-                filled.update({dst_prefix + "in_proj_weight", dst_prefix + "in_proj_bias"})
-                continue
-            for tname, col, leaf, fn in _module_leaves(module):
-                arr = take((col,) + base + ((leaf,) if leaf else ()))
-                arr = np.ascontiguousarray(fn(arr) if fn else arr)
-                dst = getattr(module, tname)
-                if tuple(dst.shape) != arr.shape:
-                    raise ValueError(f"{dst_prefix}{tname}: port {tuple(dst.shape)} vs JAX {arr.shape}")
-                dst.copy_(torch.from_numpy(arr))
-                filled.add(dst_prefix + tname)
-
-    missing = set(model.state_dict()) - filled
+    arrays = port_arrays(
+        model, {col: variables.get(col, {}) for col in ("params", "constants")}, prefix
+    )
+    state = model.state_dict(keep_vars=True)
+    missing = set(state) - set(arrays)
     if missing:
         raise KeyError(f"port tensors without a JAX leaf: {sorted(missing)}")
-    scope = flax_path(prefix.rstrip(".")) if prefix else ()
-    unused = [k for k in flat if k[1 : 1 + len(scope)] == scope and k not in used]
-    if unused:
-        raise KeyError(f"JAX leaves not loaded: {sorted('/'.join(k) for k in unused)}")
+    with torch.no_grad():
+        for name, arr in arrays.items():
+            dst = state[name]
+            if tuple(dst.shape) != arr.shape:
+                raise ValueError(f"{name}: port {tuple(dst.shape)} vs JAX {arr.shape}")
+            dst.copy_(torch.tensor(arr))
     return model
+
+
+def _numpy_tree(tree):
+    """A mapping tree (dict, FrozenDict) as nested dicts of numpy arrays."""
+    if hasattr(tree, "items"):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _adam_state(opt_state):
+    """The optax ``ScaleByAdamState`` (count, mu, nu) inside a chained
+    optimizer state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def load_jax_train_state(state, jax_state) -> None:
+    """Carry a JAX ``TrainState`` (``pairnet_tpu.train.trainer``) into the
+    port's :class:`pairnet_torch.train.trainer.TrainState` in place: the
+    params and constants, the AdamW moments ``mu``/``nu`` and ``count``
+    (as every parameter's Adam ``step``), ``step`` and ``cum_samples``.
+    The random streams differ between the packages and are not carried."""
+    model, opt = state.model, state.optimizer
+    load_jax_variables(model, _numpy_tree(jax_state.params))
+    adam = _adam_state(jax_state.opt_state)
+    if adam is None:
+        raise ValueError("the JAX optimizer state holds no Adam moments")
+    mu = port_arrays(model, {"params": _numpy_tree(adam.mu)})
+    nu = port_arrays(model, {"params": _numpy_tree(adam.nu)})
+    count = int(np.asarray(adam.count))
+    params = dict(model.named_parameters())
+    for name, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.tensor(mu[name], device=p.device, dtype=p.dtype),
+            "exp_avg_sq": torch.tensor(nu[name], device=p.device, dtype=p.dtype),
+        }
+    state.step = int(np.asarray(jax_state.step))
+    state.cum_samples = torch.from_numpy(np.array(jax_state.cum_samples, np.float32)).to(
+        state.cum_samples.device
+    )

@@ -11,10 +11,18 @@ from test_torch_helpers import msda_inputs
 
 torch = pytest.importorskip("torch")
 
-from pairnet_torch.ops.deform_attn import ms_deform_attn_plain  # noqa: E402
+from pairnet_torch.ops.deform_attn import (  # noqa: E402
+    bf16_ulps_off,
+    ms_deform_attn,
+    ms_deform_attn_plain,
+)
+from pairnet_torch.ops.deform_attn_bwd import (  # noqa: E402
+    bwd_mismatch,
+    deform_attn_bwd,
+    ms_deform_attn_bwd_plain,
+)
 from pairnet_torch.ops.deform_attn_exact import deform_attn_exact  # noqa: E402
 from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
-    bf16_ulps_off,
     int4_gather,
     int4_gather_plain,
     int4_quantize,
@@ -56,3 +64,44 @@ def test_int4_kernels_match_plain(cuda_inputs):
     out = int4_gather(codes, scales, shapes, locs, w)
     ref = int4_gather_plain(codes, scales, shapes, locs, w)
     assert bf16_ulps_off(out, ref) == 0
+
+
+@pytest.mark.parametrize("cuda_inputs", [2], indirect=True)
+@pytest.mark.parametrize("D", [32, 8])
+@pytest.mark.parametrize("inst", ["f32", "bf16", "bf16_grad"])
+def test_bwd_kernel_matches_plain(cuda_inputs, D, inst):
+    """Each backward instance against its plain version, at the flagship's
+    head width D = 32 and the tiny model's D = 8."""
+    shapes, value, locs, w = cuda_inputs
+    value = value[..., :D].to(torch.float32 if inst == "f32" else torch.bfloat16)
+    B, Q, H = locs.shape[:3]
+    g = torch.randn((B, Q, H * D), generator=torch.Generator("cuda").manual_seed(3),
+                    device="cuda")
+    bwd = "bf16_grad" if inst == "bf16_grad" else "exact"
+    n = deform_attn_bwd.launches[inst]
+    out = deform_attn_bwd(value, shapes, locs, w, g, bwd)
+    torch.cuda.synchronize()
+    assert deform_attn_bwd.launches[inst] == n + 1
+    ref = ms_deform_attn_bwd_plain(value, shapes, locs, w, g, bf16_grad=bwd == "bf16_grad")
+    err, failures = bwd_mismatch(out, ref)
+    assert not failures, (err, failures)
+
+
+@pytest.mark.parametrize("cuda_inputs", [3], indirect=True)
+@pytest.mark.parametrize("impl", ["exact", "int4"])
+def test_autograd_reaches_bwd_kernel(cuda_inputs, impl):
+    """A backward through the forward kernels launches the backward kernel
+    once and gives the plain version's gradients of value, locations and
+    weights."""
+    shapes, value, locs, w = cuda_inputs
+    value = value.to(torch.bfloat16)
+    g = torch.randn((*locs.shape[:2], value.shape[2] * value.shape[3]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    leaves = [t.clone().requires_grad_() for t in (value, locs, w)]
+    n = deform_attn_bwd.launches["bf16"]
+    out = ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2], impl=impl)
+    grads = torch.autograd.grad(out, leaves, g.to(out.dtype))
+    assert deform_attn_bwd.launches["bf16"] == n + 1
+    ref = ms_deform_attn_bwd_plain(value, shapes, locs, w, g.to(out.dtype))
+    err, failures = bwd_mismatch(grads, ref)
+    assert not failures, (err, failures)

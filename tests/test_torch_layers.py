@@ -74,6 +74,31 @@ def test_multihead_attention_with_mask():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
+def test_bf16_attention_logits_stay_f32():
+    """In bf16, q . k^T is summed and kept in f32 (JAX's
+    preferred_element_type=f32): with logits near 100, a bf16 rounding of
+    them (an ulp of 0.5) would move the softmax by far more than the
+    tolerance. Identity projections keep q, k and v exact in bf16, so the
+    two packages differ only in the f32 sum order of the logits."""
+    bf16 = jax.numpy.bfloat16
+    rng = np.random.default_rng(6)
+    q = (rng.normal(size=(2, 7, C)) * 3).astype(bf16)
+    kv = (rng.normal(size=(2, 13, C)) * 3).astype(bf16)
+    jm = JMHA(C, HEADS)
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), q, kv, kv))
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        v["params"][name]["kernel"] = 2 * np.eye(C, dtype=np.float32)
+    ref = np.asarray(jm.apply(jax.tree_util.tree_map(lambda a: a.astype(bf16), v), q, kv, kv),
+                     np.float32)
+    port = _bridge(MultiheadAttention(C, HEADS), v,
+                   "bbox_head.transformer_decoder.layers.0.attentions.0.attn.",
+                   "bbox_head", "transformer_decoder", "layer_0", "cross_attn").to(torch.bfloat16)
+    with torch.no_grad():
+        out = port(*(torch.tensor(a.astype(np.float32)).to(torch.bfloat16) for a in (q, kv, kv)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2 * np.abs(ref).max(), rtol=0)
+
+
 def _tokens(seed, B=2):
     rng = np.random.default_rng(seed)
     S = sum(h * w for h, w in SHAPES)
