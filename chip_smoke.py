@@ -34,14 +34,32 @@ result line then):
      MSDA parameter gradient.
   8. the training kernels on the inputs the training paths handed them
      (first encoder layer), with phase 2's tolerances; their timings.
-Then one JSON line of kernels, one of serving, one of training, the card's
-name and power limit, and the final line {"ok": true, "device": {...}}.
+  9. score: ``pairnet_torch.tools.test.main`` on the flagship config
+     ``configs/pairnet/pairnet_r50_psg.py`` over a synthetic PSG split of 16
+     test images at 800x1333 (padded to 800x1344), batch 8, bf16, the
+     default int4 MSDA: sgdet on the device engine, then PQ; the metric key
+     sets of the JAX package's engines, finite values, 6 int4 quantize and
+     6 int4 gather launches per forward, no flash launch, no plain call.
+ 10. score again with PAIRNET_DEFORM_IMPL=pallas_v12 and
+     PAIRNET_FLASH_ATTN=1 (sgdet and PQ), with pallas_v14 (sgdet), and in
+     f32 with pallas_v12 (sgdet): 6 int8 quantize and 6 int8 gather
+     launches per forward, one flash launch per decoder layer with >= 2048
+     keys, no plain call.
+ 11. the int8 kernels on the inputs phase 10's first encoder layer handed
+     them, the flash kernel on those of the first decoder layer at each key
+     length, with phase 2's tolerances; their timings, SDPA's for the flash
+     kernel, and scoring images/s.
+Then one JSON line of kernels, one of serving, one of training, one of
+evaluation, the card's name and power limit, and the final line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import math
+import os
 import sys
 import time
 
@@ -59,6 +77,25 @@ TOL_EXACT_BF16_REL = 1e-3  # max |kernel - plain| / max |plain|, bf16 values
 TOL_FORWARD_REL = 1e-3  # phase 4: max |exact - plain| / max(1, max |plain|)
 TOL_TRAIN_REL = 1e-3  # phase 7: losses within it x max(1, |plain|), each gradient x its max |plain|
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
+# masked_attn: max |kernel - plain| / max(1, max |plain|). The two sum the
+# f32 scores in another order, and a score's rounding error grows with its
+# size: ~5e-7 on N(0, 1) inputs, ~1e-5 on the decoder's (measured on an H100)
+TOL_FLASH = 1e-4
+LQ = 100  # decoder queries
+SCORE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs/pairnet/pairnet_r50_psg.py")
+SCORE_SPLIT = ("data.dataset.data_root=", "data.dataset.synthetic={'num_images':24,"
+               "'num_test':16,'height':800,'width':1333,'seed':3}")
+SCORE_IMAGES = 16
+# the metric keys of the JAX package's engines: SgdetAccumulator.summarize("sgdet")
+# with phrdet, evaluate_pq, and the two keys tools/test.py adds
+TOPKS = (20, 50, 100)
+SGDET_KEYS = ({f"sgdet_recall_R@{k}" for k in TOPKS} | {f"sgdet_mean_recall_mR@{k}" for k in TOPKS}
+              | {f"sgdet_group_{g}_R@{k}" for g in ("tt", "ts", "st", "ss") for k in TOPKS}
+              | {f"phrdet_recall_R@{k}" for k in TOPKS}
+              | {"sgdet_eval_time_s", "sgdet_images_per_s"})
+PQ_KEYS = ({f"{g}_{m}" for g in ("All", "Things", "Stuff") for m in ("PQ", "SQ", "RQ", "n")}
+           | {"PQ_eval_time_s", "PQ_images_per_s"})
 # the backward's least work per in-plane corner and channel: one FMA for
 # s_c = sum_d g*v, one multiply and one add for dvalue (dweights and dlocs
 # are then per-corner sums over s_c); bf16_grad rounds each dvalue term too
@@ -102,6 +139,20 @@ def msda_inputs(B, dtype, seed, dev):
     w = torch.rand((B, S, H, L, P), generator=g, device=dev)
     w = w / w.sum(dim=(-1, -2), keepdim=True)
     return value, locs, w
+
+
+def flash_inputs(B, Lk, dtype, seed, dev):
+    """q (B*H, LQ, D), k and v (B*H, Lk, D) of N(0, 1) entries; a head-shared
+    mask (B, LQ, Lk) about half set, whole 1024-key spans masked in every
+    7th row, and one live key in every row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B * H, n, D), generator=g, device=dev).to(dtype)
+               for n in (LQ, Lk, Lk))
+    mask = torch.rand((B, LQ, Lk), generator=g, device=dev) < 0.5
+    mask[:, ::7, :1024] = True
+    live = torch.randint(0, Lk, (B, LQ, 1), generator=g, device=dev)
+    mask.scatter_(2, live, False)
+    return q, k, v, mask
 
 
 def inside_corners(locs):
@@ -168,11 +219,24 @@ def main():
         ms_deform_attn_bwd_plain,
     )
     from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops import deform_attn_int4 as int4_mod
+    from pairnet_torch.ops import deform_attn_int8 as int8_mod
+    from pairnet_torch.ops import masked_attn as flash_mod
     from pairnet_torch.ops.deform_attn_int4 import (
         int4_gather,
         int4_gather_plain,
         int4_quantize,
         int4_quantize_plain,
+    )
+    from pairnet_torch.ops.deform_attn_int8 import (
+        int8_gather,
+        int8_gather_plain,
+        int8_quantize,
+        int8_quantize_plain,
+    )
+    from pairnet_torch.ops.masked_attn import (
+        masked_flash_attention,
+        masked_flash_attention_plain,
     )
     from pairnet_torch.train import trainer as trainer_mod
 
@@ -201,15 +265,28 @@ def main():
               f"deform_attn_exact bf16 values: rel {rel} > {TOL_EXACT_BF16_REL}")
         return rel
 
-    def compare_quantize(k, p):
+    def compare_quantize(k, p, name="int4_quantize"):
         check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
-              "int4_quantize: codes and scales not bit-equal to plain")
+              f"{name}: codes and scales not bit-equal to plain")
         return max(float((k[0].int() - p[0].int()).abs().max()), float((k[1] - p[1]).abs().max()))
 
-    def compare_gather(k, p):
+    def compare_gather(k, p, name="int4_gather"):
         n_over = bf16_ulps_off(k, p)
-        check(n_over == 0, f"int4_gather: {n_over} outputs beyond 1 bf16 ulp of plain")
+        check(k.dtype == torch.bfloat16 and n_over == 0,
+              f"{name}: {n_over} outputs beyond 1 bf16 ulp of plain")
         return float((k.float() - p.float()).abs().max())
+
+    def compare_gather_f32(k, p):
+        rel = float((k - p).abs().max() / p.abs().max())
+        check(k.dtype == torch.float32 and rel <= TOL_EXACT_BF16_REL / 10,
+              f"int8_gather f32 out: rel {rel} > {TOL_EXACT_BF16_REL / 10}")
+        return rel
+
+    def compare_flash(k, p):
+        d = float((k - p).abs().max())
+        bound = TOL_FLASH * max(1.0, float(p.abs().max()))
+        check(k.dtype == torch.float32 and d <= bound, f"masked_attn: max|d| {d} > {bound}")
+        return d
 
     def compare_bwd(k, p):
         err, failures = bwd_mismatch(k, p)
@@ -240,13 +317,35 @@ def main():
                              "bf16_grad": (vb, "bf16_grad")}.items():
         kernel_fn, plain_fn = bwd_inputs(val, bwd)
         e_bwd[inst] = compare_bwd(kernel_fn(val, locs, w, g_wide), plain_fn(val, locs, w, g_wide))
+    e_int8 = {}
+    for name, val in (("bf16", vb), ("f32", v32)):
+        codes, scales = int8_quantize(val, SHAPES)
+        compare_quantize((codes, scales), int8_quantize_plain(val, SHAPES), "int8_quantize")
+        e_int8[f"gather bf16 out, {name} codes"] = compare_gather(
+            int8_gather(codes, scales, SHAPES, locs, w),
+            int8_gather_plain(codes, scales, SHAPES, locs, w), "int8_gather")
+        e_int8[f"gather f32 out rel, {name} codes"] = compare_gather_f32(
+            int8_gather(codes, scales, SHAPES, locs, w, torch.float32),
+            int8_gather_plain(codes, scales, SHAPES, locs, w, torch.float32))
+    e_flash = {}
+    for Lk in (SHAPES[1][0] * SHAPES[1][1], SHAPES[2][0] * SHAPES[2][1]):
+        for dname, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q, k, v, mask = flash_inputs(CHECK_BATCH, Lk, dt, 3, dev)
+            e_flash[f"Lk {Lk} {dname}"] = compare_flash(
+                masked_flash_attention(q, k, v, mask, H),
+                masked_flash_attention_plain(q, k, v, mask, H))
+    del q, k, v, mask
     torch.cuda.synchronize()
     log(f"[2] kernel vs plain (batch {CHECK_BATCH}, levels {SHAPES}, wide offsets): exact f32 "
         f"max|d| {e_f32:.3g} (tol {TOL_EXACT_F32}); exact bf16 rel {rel_bf16:.3g} "
         f"(tol {TOL_EXACT_BF16_REL}); int4_quantize codes+scales bit-equal; "
         f"int4_gather max|d| {e_gather:.3g}, all within 1 bf16 ulp; deform_attn_bwd max|d| "
         f"{ {k: f'{v:.3g}' for k, v in e_bwd.items()} } (f32 outputs within "
-        f"{bwd_mod.BWD_TOLERANCE} x max|plain|, bf16 dvalue within 1 bf16 ulp)")
+        f"{bwd_mod.BWD_TOLERANCE} x max|plain|, bf16 dvalue within 1 bf16 ulp); int8_quantize "
+        f"codes+scales bit-equal on bf16 and f32 values; int8_gather "
+        f"{ {k: f'{v:.3g}' for k, v in e_int8.items()} } (bf16 out within 1 bf16 ulp, f32 out "
+        f"within {TOL_EXACT_BF16_REL / 10} x max|plain|); masked_attn max|d| "
+        f"{ {k: f'{v:.3g}' for k, v in e_flash.items()} } (tol {TOL_FLASH} x max(1, max|plain|))")
     del v32, vb, locs, w, codes, scales, g_wide
 
     # capture the MSDA inputs that a forward hands to the kernels, the
@@ -346,16 +445,18 @@ def main():
     kernels = []
 
     def record(name, launches, kernel_fn, plain_fn, compare, in_t, flops, note, phase=5,
-               **where):
+               library_fn=None, **where):
         """Check the kernel against its plain version on the main path's
-        inputs, time both, and add the kernel's entry (``where``: source,
-        replaces) unless ``launches`` is None."""
+        inputs, time both (and ``library_fn``, one PyTorch call of the same
+        function, where there is one), and add the kernel's entry
+        (``where``: source, replaces) unless ``launches`` is None."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         d = compare(out, ref)
         del ref
-        ms = cuda_ms(kernel_fn, 20)
-        plain_ms = cuda_ms(plain_fn, 3)
+        ms = cuda_ms(kernel_fn, 10)
+        plain_ms = cuda_ms(plain_fn, 2)
+        library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
         out_t = out if isinstance(out, tuple) else (out,)
         t_bytes = nbytes(*in_t, *out_t) / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOPS * 1e3
@@ -364,10 +465,11 @@ def main():
             kernels.append({
                 "name": name, "route": "cuda", **where, "launches": launches, "max_abs_err": d,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": bound_by, "library_ms": None,
+                "bound_by": bound_by, "library_ms": library_ms,
             })
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[{phase}] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
+            f"{plain_ms:.3f} ms{lib}, bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
             f"{t_bytes:.4f}, ops {t_ops:.4f})")
         return out
 
@@ -393,14 +495,14 @@ def main():
         "int4_quantize", serving_launches["int4_quantize"], lambda: int4_quantize(v, SHAPES),
         lambda: int4_quantize_plain(v, SHAPES), compare_quantize, (v,), 5 * v.numel(),
         f"bf16 serving batch {B}, encoder layer 0, max|d| of codes and scales",
-        source="pairnet_torch/csrc/deform_attn_int4.cu",
+        source="pairnet_torch/csrc/deform_attn_quant.cu",
         replaces="pairnet_tpu/ops/pallas_deform_attn_v16.py:54")
     record("int4_gather", serving_launches["int4_gather"],
            lambda: int4_gather(codes, scales, SHAPES, lc, wt),
            lambda: int4_gather_plain(codes, scales, SHAPES, lc, wt), compare_gather,
            (codes, scales, lc, wt), tap_flops(lc),
            f"bf16 serving batch {B}, encoder layer 0, max|d|, all within 1 bf16 ulp",
-           source="pairnet_torch/csrc/deform_attn_int4.cu",
+           source="pairnet_torch/csrc/deform_attn_quant.cu",
            replaces="pairnet_tpu/ops/pallas_deform_attn_v16.py:106")
 
     del model, images, out, preds, codes, scales, v, lc, wt
@@ -596,6 +698,223 @@ def main():
                          else rows_56))
         kernels[-1]["launches_per_step"] = n_launch / steps
 
+    del captured_bwd
+    captured.clear()
+    torch.cuda.empty_cache()
+
+    # --- (9) score with the CLI: flagship config, bf16, int4 ---
+    from pairnet_torch import native
+    from pairnet_torch.config import load_config
+    from pairnet_torch.tools import test as cli
+
+    plain_fns.extend([(int4_mod, "int4_quantize_plain"), (int4_mod, "int4_gather_plain"),
+                      (int8_mod, "int8_quantize_plain"), (int8_mod, "int8_gather_plain"),
+                      (flash_mod, "masked_flash_attention_plain")])
+    n_dec = load_config(SCORE_CONFIG).model.bbox_head.num_decoder_layers
+    # the decoder's layer i attends over level i % L, low to high resolution
+    flash_layers = sum(SHAPES[i % L][0] * SHAPES[i % L][1] >= layers_mod.FLASH_MIN_KEYS
+                       for i in range(n_dec))
+    forwards = [0]
+    orig_apply_fn = cli.make_apply_fn
+
+    def counting_apply_fn(*args):
+        apply_fn = orig_apply_fn(*args)
+
+        def counted(images):
+            forwards[0] += 1
+            return apply_fn(images)
+        return counted
+
+    flash_caps, flash_calls = {}, collections.Counter()  # (Lk, dtype) -> first inputs, calls
+    orig_flash = layers_mod.masked_flash_attention
+
+    def capturing_flash(q, k, v, mask, num_heads):
+        key = (k.shape[1], q.dtype)
+        flash_calls[key] += 1
+        if key not in flash_caps:
+            flash_caps[key] = tuple(t.detach().clone() for t in (q, k, v, mask))
+        return orig_flash(q, k, v, mask, num_heads)
+
+    def score_counts():
+        return {"int4_quantize": int4_quantize.launches, "int4_gather": int4_gather.launches,
+                "int8_quantize": dict(int8_quantize.launches),
+                "int8_gather": dict(int8_gather.launches),
+                "masked_attn": masked_flash_attention.launches,
+                "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
+
+    def score(what, env, dtype="bf16", capture=False):
+        """One run of ``pairnet_torch.tools.test.main`` with the environment
+        ``env``: its metrics after the key-set and finiteness checks, and the
+        kernel launches of the run per forward."""
+        saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN")}
+        os.environ.update(env)
+        cli.make_apply_fn = counting_apply_fn
+        if capture:
+            layers_mod.ms_deform_attn = capturing
+            layers_mod.masked_flash_attention = capturing_flash
+        torch.cuda.synchronize()
+        int4_quantize.launches = int4_gather.launches = deform_attn_exact.launches = 0
+        masked_flash_attention.launches = 0
+        int8_quantize.launches.clear()
+        int8_gather.launches.clear()
+        plain_calls.clear()
+        forwards[0] = 0
+        count_plain_calls(True)
+        try:
+            metrics = cli.main([SCORE_CONFIG, "--eval", what, "--batch-size", str(BATCH),
+                                "--dtype", dtype, "--device", DEVICE, "--cfg-options",
+                                *SCORE_SPLIT])
+            torch.cuda.synchronize()
+        finally:
+            count_plain_calls(False)
+            cli.make_apply_fn = orig_apply_fn
+            layers_mod.ms_deform_attn, layers_mod.masked_flash_attention = orig_msda, orig_flash
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        counts = score_counts()
+        nf = forwards[0]
+        check(nf == -(-SCORE_IMAGES // BATCH), f"{nf} forwards for {SCORE_IMAGES} images")
+        keys = SGDET_KEYS if what == "sgdet" else PQ_KEYS
+        check(set(metrics) == keys, f"{what} metric keys {sorted(set(metrics) ^ keys)} differ")
+        check(all(math.isfinite(v) for v in metrics.values()), f"{what} metrics {metrics}")
+        per_fwd = {k: ({i: n / nf for i, n in v.items()} if isinstance(v, dict) else v / nf)
+                   for k, v in counts.items() if k != "plain"}
+        per_fwd["plain"] = counts["plain"]
+        return metrics, counts, per_fwd
+
+    int4_expect = {"int4_quantize": 6, "int4_gather": 6, "int8_quantize": {}, "int8_gather": {},
+                   "masked_attn": 0, "deform_attn_exact": 0, "plain": {}}
+    runs = {}
+    for what in ("sgdet", "PQ"):
+        metrics, counts, per_fwd = score(what, {})
+        check(per_fwd == int4_expect, f"int4 {what} scoring launches per forward {per_fwd}")
+        runs[f"bf16 int4 {what}"] = (metrics, counts, per_fwd)
+    log(f"[9] scored {os.path.relpath(SCORE_CONFIG)} on {SCORE_IMAGES} synthetic 800x1333 images, batch {BATCH}, "
+        f"bf16, int4 (native preprocessing {native.available()}): sgdet "
+        f"{runs['bf16 int4 sgdet'][0]['sgdet_images_per_s']} img/s, PQ "
+        f"{runs['bf16 int4 PQ'][0]['PQ_images_per_s']} img/s; metric key sets as the JAX "
+        f"engines', values finite; launches per forward {runs['bf16 int4 sgdet'][2]}")
+
+    # --- (10) score with the int8 kernels and the flash cross-attention ---
+    for name, env, what, dtype in (
+            ("bf16 int8 flash sgdet", {"PAIRNET_DEFORM_IMPL": "pallas_v12"}, "sgdet", "bf16"),
+            ("bf16 int8 flash PQ", {"PAIRNET_DEFORM_IMPL": "pallas_v12"}, "PQ", "bf16"),
+            ("bf16 int8 (v14) flash sgdet", {"PAIRNET_DEFORM_IMPL": "pallas_v14"}, "sgdet", "bf16"),
+            ("f32 int8 flash sgdet", {"PAIRNET_DEFORM_IMPL": "pallas_v12"}, "sgdet", "f32")):
+        metrics, counts, per_fwd = score(what, {**env, "PAIRNET_FLASH_ATTN": "1"}, dtype,
+                                         capture=name in ("bf16 int8 flash sgdet",
+                                                          "f32 int8 flash sgdet"))
+        inst = "bf16" if dtype == "bf16" else "f32"
+        expect = {"int4_quantize": 0, "int4_gather": 0, "int8_quantize": {inst: 6},
+                  "int8_gather": {"bf16": 6}, "masked_attn": flash_layers,
+                  "deform_attn_exact": 0, "plain": {}}
+        check(per_fwd == expect, f"{name} launches per forward {per_fwd}, expected {expect}")
+        runs[name] = (metrics, counts, per_fwd)
+    log(f"[10] scored with PAIRNET_DEFORM_IMPL=pallas_v12 / pallas_v14 and PAIRNET_FLASH_ATTN=1: "
+        f"launches per forward {runs['bf16 int8 flash sgdet'][2]} (flash: {flash_layers} of "
+        f"{n_dec} decoder layers have >= {layers_mod.FLASH_MIN_KEYS} keys), f32 run "
+        f"{runs['f32 int8 flash sgdet'][2]}; flash calls by (keys, dtype) {dict(flash_calls)}; "
+        f"sgdet {runs['bf16 int8 flash sgdet'][0]['sgdet_images_per_s']} img/s")
+
+    # --- (11) the new kernels on the scoring path's inputs; timings ---
+    c_bf16, c_f32 = runs["bf16 int8 flash sgdet"][1], runs["f32 int8 flash sgdet"][1]
+    n_before = len(kernels)
+    quant_src = "pairnet_torch/csrc/deform_attn_quant.cu"
+    for inst, (v, lc, wt) in (("bf16", captured[("int8", torch.bfloat16)]),
+                              ("f32", captured[("int8", torch.float32)])):
+        c = c_bf16 if inst == "bf16" else c_f32
+        what = f"{inst} scoring batch {BATCH}, encoder layer 0"
+        codes, scales = record(
+            f"int8_quantize ({inst} values)", c["int8_quantize"].get(inst, 0),
+            lambda: int8_quantize(v, SHAPES), lambda: int8_quantize_plain(v, SHAPES),
+            lambda k, p: compare_quantize(k, p, "int8_quantize"), (v,), 5 * v.numel(),
+            f"{what}, max|d| of codes and scales", phase=11, source=quant_src,
+            replaces="pairnet_tpu/ops/pallas_deform_attn_v12.py:54")
+        if inst == "bf16":
+            record("int8_gather (bf16 out)", c["int8_gather"].get("bf16", 0),
+                   lambda: int8_gather(codes, scales, SHAPES, lc, wt),
+                   lambda: int8_gather_plain(codes, scales, SHAPES, lc, wt),
+                   lambda k, p: compare_gather(k, p, "int8_gather"), (codes, scales, lc, wt),
+                   tap_flops(lc), f"{what}, max|d|, all within 1 bf16 ulp", phase=11,
+                   source=quant_src, replaces="pairnet_tpu/ops/pallas_deform_attn_v12.py:118 "
+                   "(v12), pairnet_tpu/ops/pallas_deform_attn_v14.py:57 (v14)")
+            # the f32-output instance: the parity anchors v10 / v11, on no path
+            record("int8_gather (f32 out)", c["int8_gather"].get("f32", 0),
+                   lambda: int8_gather(codes, scales, SHAPES, lc, wt, torch.float32),
+                   lambda: int8_gather_plain(codes, scales, SHAPES, lc, wt, torch.float32),
+                   compare_gather_f32, (codes, scales, lc, wt), tap_flops(lc),
+                   f"{what}, rel", phase=11, source=quant_src,
+                   replaces="pairnet_tpu/ops/pallas_deform_attn_v10.py:93, "
+                            "pairnet_tpu/ops/pallas_deform_attn_v11.py:61")
+    import torch.nn.functional as F
+
+    for dt, c in ((torch.bfloat16, c_bf16), (torch.float32, c_f32)):
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        lks = sorted(lk for lk, d in flash_caps if d == dt)
+        for Lk in lks:
+            q, k, v, mask = flash_caps[(Lk, dt)]
+            B_ = mask.shape[0]
+            q4, k4, v4 = (t.float().reshape(B_, H, t.shape[1], D) for t in (q, k, v))
+            attend = ~mask[:, None]
+            record(f"masked_attn ({dname}, Lk {Lk})", 0,
+                   lambda: masked_flash_attention(q, k, v, mask, H),
+                   lambda: masked_flash_attention_plain(q, k, v, mask, H), compare_flash,
+                   (q, k, v, mask), 4 * q.shape[0] * q.shape[1] * Lk * D,
+                   f"{dname} scoring batch {BATCH}, first decoder layer with {Lk} keys, "
+                   f"max|d|", phase=11,
+                   library_fn=lambda: F.scaled_dot_product_attention(q4, k4, v4, attend),
+                   source="pairnet_torch/csrc/masked_attn.cu",
+                   replaces="pairnet_tpu/ops/pallas_masked_attn.py:45")
+        # one entry per instance: per-call numbers averaged over the key
+        # lengths in the proportion of the path's calls
+        per_lk = {Lk: kernels.pop(-len(lks) + i) for i, Lk in enumerate(lks)}
+        calls = {Lk: flash_calls[(Lk, dt)] for Lk in lks}
+        share = {Lk: n / sum(calls.values()) for Lk, n in calls.items()}
+        entry = dict(per_lk[lks[0]], name=f"masked_attn ({dname})",
+                     launches=c["masked_attn"],
+                     max_abs_err=max(e["max_abs_err"] for e in per_lk.values()))
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            entry[key] = sum(share[Lk] * e[key] for Lk, e in per_lk.items())
+        entry["bound_by"] = ("operations" if all(e["bound_by"] == "operations"
+                                                 for e in per_lk.values()) else "bytes")
+        entry["per_lk"] = {str(Lk): {key: e[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "library_ms")}
+                           for Lk, e in per_lk.items()}
+        entry["calls_per_lk"] = {str(Lk): n for Lk, n in calls.items()}
+        kernels.append(entry)
+    for entry in kernels[n_before:]:
+        entry["launches_per_forward"] = entry["launches"] / -(-SCORE_IMAGES // BATCH)
+
+    # the host's share of scoring: the loader (PNG decoding, resize,
+    # normalization, GT masks) and the full-resolution GT of the split
+    from pairnet_torch.config import apply_overrides
+    from pairnet_torch.data.pipeline import Loader
+    from pairnet_torch.evaluation.runner import load_groundtruths
+    from pairnet_torch.train.builder import build_dataset, build_pipeline_cfg
+
+    score_cfg = apply_overrides(load_config(SCORE_CONFIG), list(SCORE_SPLIT))
+    split = build_dataset(score_cfg, "test")
+    t0 = time.perf_counter()
+    for _ in Loader(split, build_pipeline_cfg(score_cfg, train=False), BATCH):
+        pass
+    loader_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_groundtruths(split)
+    gt_s = time.perf_counter() - t0
+    log(f"[11] host work of scoring {len(split)} images: loader {loader_s:.3f} s, "
+        f"full-resolution GT {gt_s:.3f} s")
+    evaluation = {
+        "config": os.path.relpath(SCORE_CONFIG), "images": SCORE_IMAGES, "hw": [800, 1333],
+        "padded": list(IMG), "batch": BATCH, "host_s": {"loader": loader_s, "groundtruth": gt_s},
+        "runs": {name: {"metrics": m, "launches_per_forward": pf} for name, (m, _, pf) in runs.items()},
+    }
+    log(f"[11] scoring img/s (CLI, end to end: loading, forward, post-processing, canvas "
+        f"resize, matching): " + ", ".join(
+            f"{name} {m.get('sgdet_images_per_s', m.get('PQ_images_per_s'))}"
+            for name, (m, _, _) in runs.items()))
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
                                   "ms_per_batch": serve_ms, "img_per_s": img_per_s}}))
@@ -610,6 +929,7 @@ def main():
             "loss_max_abs_err": max(loss_err.values()),
             "msda_grad_max_abs_err": max(grad_err.values()), "msda_grad_max_rel_err": grad_rel,
             "replayed": flips}}}))
+    print(json.dumps({"evaluation": evaluation}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

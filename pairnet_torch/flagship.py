@@ -91,6 +91,15 @@ def set_deform_impl(model: nn.Module, impl: str | None) -> nn.Module:
     return model
 
 
+def set_flash_attention(model: nn.Module, on: bool) -> nn.Module:
+    """Switch the masked flash-attention route of every MultiheadAttention
+    of ``model`` on or off (JAX's ``PAIRNET_FLASH_ATTN=1``)."""
+    for m in model.modules():
+        if isinstance(m, MultiheadAttention):
+            m.flash = bool(on)
+    return model
+
+
 def set_deform_bwd(model: nn.Module, bwd: str) -> nn.Module:
     """Give every MSDeformAttention of ``model`` the MSDA backward ``bwd``
     ("exact" or "bf16_grad")."""

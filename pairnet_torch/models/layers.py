@@ -17,8 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from pairnet_torch.ops.deform_attn import ms_deform_attn
+from pairnet_torch.ops.masked_attn import masked_flash_attention
 
 LN_EPS = 1e-6  # flax LayerNorm / GroupNorm default
+FLASH_MIN_KEYS = 2048  # the flash route's least memory length (JAX layers.py:107)
 
 
 def sine_positional_encoding(h, w, num_feats=128, temperature=10000.0, normalize=True,
@@ -66,13 +68,17 @@ class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention semantics, batch-first, packed in_proj.
 
     ``attn_mask`` is bool with True = masked out, shaped (B, 1 or H, Lq, Lk).
-    Written out as matmul, -1e9 fill, f32 softmax and matmul.
+    Written out as matmul, -1e9 fill, f32 softmax and matmul. With ``flash``
+    set (``flagship.set_flash_attention``), a head-shared mask and at least
+    ``FLASH_MIN_KEYS`` keys take the masked flash-attention kernel instead,
+    as JAX's ``PAIRNET_FLASH_ATTN=1`` does; inference only (no backward).
     """
 
     def __init__(self, embed_dims, num_heads):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
+        self.flash = False
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dims))
         self.out_proj = nn.Linear(embed_dims, embed_dims)
@@ -89,6 +95,14 @@ class MultiheadAttention(nn.Module):
         q = q.reshape(B, Lq, H, D).transpose(1, 2)
         k = k.reshape(B, Lk, H, D).transpose(1, 2)
         v = v.reshape(B, Lk, H, D).transpose(1, 2)
+        if (self.flash and attn_mask is not None and attn_mask.shape[1] == 1
+                and Lk >= FLASH_MIN_KEYS):
+            out = masked_flash_attention(
+                q.reshape(B * H, Lq, D), k.reshape(B * H, Lk, D), v.reshape(B * H, Lk, D),
+                attn_mask[:, 0], H,
+            )
+            out = out.reshape(B, H, Lq, D).transpose(1, 2).to(value.dtype).reshape(B, Lq, C)
+            return self.out_proj(out)
         # f32 products and output, as JAX's preferred_element_type=f32: a
         # bf16 matmul would round the logits to bf16 before the softmax
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))

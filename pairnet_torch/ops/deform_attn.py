@@ -13,15 +13,17 @@ Shapes (the JAX package's layout):
 Returns                (B, Q, H * D)
 
 Implementations (``impl``):
-  "exact" -- CUDA kernel, f32 or bf16 values, f32 output (default on CUDA)
-  "int4"  -- CUDA int4 quantize + gather, bf16 output (bf16 serving)
-  "plain" -- :func:`ms_deform_attn_plain`, plain PyTorch, f32 output
-CPU tensors always take the plain forward; on CUDA "plain" runs only when
-asked for. "exact" and "int4" are autograd Functions whose backward is the
-MSDA backward variant ``bwd`` ("exact" or "bf16_grad",
-``ops/deform_attn_bwd.py``): the kernel on CUDA, its plain version on CPU,
-where the exact Function stands in for every impl but "plain" (which
-differentiates through :func:`ms_deform_attn_plain` itself).
+  "exact"    -- CUDA kernel, f32 or bf16 values, f32 output (default on CUDA)
+  "int4"     -- CUDA int4 quantize + gather, bf16 output (bf16 serving, v16)
+  "int8"     -- CUDA int8 quantize + gather, bf16 output (v12 / v14)
+  "plain"    -- :func:`ms_deform_attn_plain`, plain PyTorch, f32 output
+Every impl computes the same function on CPU tensors as on CUDA ones: the
+kernels' wrappers take their plain versions on the CPU (the quantized impls
+quantize there too). "exact", "int4" and "int8" are autograd Functions
+whose backward is the MSDA backward variant ``bwd`` ("exact" or
+"bf16_grad", ``ops/deform_attn_bwd.py``) on the full-precision inputs: the
+kernel on CUDA, its plain version on CPU. "plain" differentiates through
+:func:`ms_deform_attn_plain` itself.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Sequence
 
 import torch
 
-IMPLS = ("exact", "int4", "plain")
+IMPLS = ("exact", "int4", "int8", "plain")
 
 
 def level_starts(spatial_shapes: Sequence[tuple[int, int]]) -> list[int]:
@@ -127,10 +129,16 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
         return ms_deform_attn_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
-    if impl == "int4" and value.device.type != "cpu":
+    if impl == "int4":
         from pairnet_torch.ops.deform_attn_int4 import ms_deform_attn_int4
 
         return ms_deform_attn_int4(
+            value, spatial_shapes, sampling_locations, attention_weights, bwd
+        )
+    if impl == "int8":
+        from pairnet_torch.ops.deform_attn_int8 import ms_deform_attn_int8
+
+        return ms_deform_attn_int8(
             value, spatial_shapes, sampling_locations, attention_weights, bwd
         )
     from pairnet_torch.ops.deform_attn_exact import ms_deform_attn_exact

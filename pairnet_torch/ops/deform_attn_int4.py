@@ -1,4 +1,4 @@
-"""int4 MSDA for bf16 serving: wrappers of ``csrc/deform_attn_int4.cu``.
+"""int4 MSDA for bf16 serving: wrappers of ``csrc/deform_attn_quant.cu``.
 
 Replaces ``pairnet_tpu/ops/pallas_deform_attn_v16.py``: ``_qp16_kernel``
 becomes :func:`int4_quantize` and ``_kernel`` becomes :func:`int4_gather`.
@@ -12,7 +12,8 @@ Both kernels are bound by bytes on an H100; see the source note.
   target is the exact MSDA on the dequantized values, then cast to bf16.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernels or raise.
+launch the kernels or raise. The launchers here also serve the int8
+instances of the same source (``ops/deform_attn_int8.py``).
 
 :func:`ms_deform_attn_int4` is differentiable, as the ``custom_vjp`` of
 ``ms_deform_attn_pallas_v16`` is: an
@@ -34,36 +35,45 @@ from pairnet_torch.ops.deform_attn_bwd import MSDAFunction
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+QUANTIZE_FNS = ("int4_quantize_bf16", "int8_quantize_bf16", "int8_quantize_f32")
+GATHER_FNS = ("int4_gather", "int8_gather_bf16", "int8_gather_f32")
 
 
 @functools.cache
 def _lib():
-    lib = _build.load("deform_attn_int4")
-    lib.int4_quantize_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
-    lib.int4_quantize_bf16.restype = ctypes.c_int
-    lib.int4_gather.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
-    lib.int4_gather.restype = ctypes.c_int
+    lib = _build.load("deform_attn_quant")
+    for name in QUANTIZE_FNS:
+        getattr(lib, name).argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in GATHER_FNS:
+        getattr(lib, name).argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def int4_quantize_plain(value, spatial_shapes):
-    """Plain version of :func:`int4_quantize`: (codes int8, scales f32)."""
+def quantize_plain(value, spatial_shapes, bound: int):
+    """Per-(b, h, level, d) quantization to codes in [-bound, bound]:
+    (codes int8 (B, S, H, D), scales f32 (B, H, L, D))."""
     B, S, H, D = value.shape
     offs = level_starts(spatial_shapes)
     v = value.float()
     # a tensor divisor keeps the divide IEEE on CUDA (a Python scalar
     # divisor becomes a multiply by its reciprocal there)
-    seven = v.new_tensor(7.0)
+    divisor = v.new_tensor(float(bound))
     codes = torch.empty((B, S, H, D), dtype=torch.int8, device=value.device)
     scales = []
     for lvl in range(len(spatial_shapes)):
         vl = v[:, offs[lvl] : offs[lvl + 1]]
-        scale = torch.clamp_min(vl.abs().amax(dim=1) / seven, 1e-20)  # (B, H, D)
-        codes[:, offs[lvl] : offs[lvl + 1]] = torch.round(vl / scale[:, None]).clamp(-7, 7).to(
-            torch.int8
-        )
+        scale = torch.clamp_min(vl.abs().amax(dim=1) / divisor, 1e-20)  # (B, H, D)
+        codes[:, offs[lvl] : offs[lvl + 1]] = torch.round(vl / scale[:, None]).clamp(
+            -bound, bound).to(torch.int8)
         scales.append(scale)
     return codes, torch.stack(scales, dim=2)
+
+
+def int4_quantize_plain(value, spatial_shapes):
+    """Plain version of :func:`int4_quantize`: (codes int8, scales f32)."""
+    return quantize_plain(value, spatial_shapes, 7)
 
 
 def int4_gather_plain(codes, scales, spatial_shapes, sampling_locations, attention_weights):
@@ -77,33 +87,72 @@ def int4_gather_plain(codes, scales, spatial_shapes, sampling_locations, attenti
     return out.to(torch.bfloat16)
 
 
-def int4_quantize(value, spatial_shapes):
-    """Per-(b, h, level, d) int4 quantization of the value plane; bf16
-    values on the card (the plain version also takes f32)."""
-    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if value.device.type == "cpu":
-        return int4_quantize_plain(value, spatial_shapes)
+def launch_quantize(fn: str, what: str, value, spatial_shapes):
+    """Launch the quantize entry ``fn`` of the library on a CUDA value of
+    the layout (B, S, H, D) and of the dtype that ``fn`` names (``_bf16``
+    or ``_f32``): (codes int8, scales f32 (B, H, L, D))."""
     if value.device.type != "cuda":
-        raise ValueError(f"int4_quantize: unsupported device {value.device}")
-    if value.dtype != torch.bfloat16:
-        raise TypeError(f"int4_quantize: value dtype {value.dtype} is not bf16")
+        raise ValueError(f"{what}: unsupported device {value.device}")
+    want = torch.bfloat16 if fn.endswith("_bf16") else torch.float32
+    if value.dtype != want:
+        raise TypeError(f"{what}: value dtype {value.dtype} is not {want}")
     B, S, H, D = value.shape
     L = len(spatial_shapes)
     if S != level_starts(spatial_shapes)[-1]:
-        raise ValueError(f"int4_quantize: S={S} does not match levels {spatial_shapes}")
+        raise ValueError(f"{what}: S={S} does not match levels {spatial_shapes}")
     value = value.contiguous()
     amax = torch.zeros((B, L, H, D), dtype=torch.int32, device=value.device)
     codes = torch.empty((B, S, H, D), dtype=torch.int8, device=value.device)
     scales = torch.empty((B, H, L, D), dtype=torch.float32, device=value.device)
     hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(value.device):
-        status = _lib().int4_quantize_bf16(
+        status = getattr(_lib(), fn)(
             value.data_ptr(), amax.data_ptr(), codes.data_ptr(), scales.data_ptr(),
             B, S, H, D, L, ctypes.addressof(hw), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(status, "int4_quantize")
-    int4_quantize.launches += 1
+    _build.check(status, what)
     return codes, scales
+
+
+def launch_gather(fn: str, what: str, out_dtype, codes, scales, spatial_shapes,
+                  sampling_locations, attention_weights):
+    """Launch the gather entry ``fn`` on CUDA codes and scales: an
+    ``out_dtype`` tensor (B, Q, H * D)."""
+    if codes.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {codes.device}")
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{what}: expects int8 codes and f32 scales")
+    check_inputs(codes, spatial_shapes, sampling_locations, attention_weights)
+    B, S, H, D = codes.shape
+    L = len(spatial_shapes)
+    if scales.shape != (B, H, L, D) or scales.device != codes.device:
+        raise ValueError(f"{what}: scales {tuple(scales.shape)} are not {(B, H, L, D)}")
+    codes = codes.contiguous()
+    scales = scales.contiguous()
+    locs = sampling_locations.float().contiguous()
+    weights = attention_weights.float().contiguous()
+    Q, P = locs.shape[1], locs.shape[4]
+    out = torch.empty((B, Q, H * D), dtype=out_dtype, device=codes.device)
+    hw = _build.host_shapes(spatial_shapes)
+    with torch.cuda.device(codes.device):
+        status = getattr(_lib(), fn)(
+            codes.data_ptr(), scales.data_ptr(), locs.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), B, S, Q, H, D, L, P, ctypes.addressof(hw),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, what)
+    return out
+
+
+def int4_quantize(value, spatial_shapes):
+    """Per-(b, h, level, d) int4 quantization of the value plane; bf16
+    values on the card (the plain version also takes f32)."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if value.device.type == "cpu":
+        return int4_quantize_plain(value, spatial_shapes)
+    out = launch_quantize("int4_quantize_bf16", "int4_quantize", value, spatial_shapes)
+    int4_quantize.launches += 1
+    return out
 
 
 def int4_gather(codes, scales, spatial_shapes, sampling_locations, attention_weights):
@@ -113,29 +162,8 @@ def int4_gather(codes, scales, spatial_shapes, sampling_locations, attention_wei
         return int4_gather_plain(
             codes, scales, spatial_shapes, sampling_locations, attention_weights
         )
-    if codes.device.type != "cuda":
-        raise ValueError(f"int4_gather: unsupported device {codes.device}")
-    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError("int4_gather: expects int8 codes and f32 scales")
-    check_inputs(codes, spatial_shapes, sampling_locations, attention_weights)
-    B, S, H, D = codes.shape
-    L = len(spatial_shapes)
-    if scales.shape != (B, H, L, D) or scales.device != codes.device:
-        raise ValueError(f"int4_gather: scales {tuple(scales.shape)} are not {(B, H, L, D)}")
-    codes = codes.contiguous()
-    scales = scales.contiguous()
-    locs = sampling_locations.float().contiguous()
-    weights = attention_weights.float().contiguous()
-    Q, P = locs.shape[1], locs.shape[4]
-    out = torch.empty((B, Q, H * D), dtype=torch.bfloat16, device=codes.device)
-    hw = _build.host_shapes(spatial_shapes)
-    with torch.cuda.device(codes.device):
-        status = _lib().int4_gather(
-            codes.data_ptr(), scales.data_ptr(), locs.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), B, S, Q, H, D, L, P, ctypes.addressof(hw),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(status, "int4_gather")
+    out = launch_gather("int4_gather", "int4_gather", torch.bfloat16, codes, scales,
+                        spatial_shapes, sampling_locations, attention_weights)
     int4_gather.launches += 1
     return out
 

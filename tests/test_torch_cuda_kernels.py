@@ -28,6 +28,16 @@ from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
     int4_quantize,
     int4_quantize_plain,
 )
+from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
+    int8_gather,
+    int8_gather_plain,
+    int8_quantize,
+    int8_quantize_plain,
+)
+from pairnet_torch.ops.masked_attn import (  # noqa: E402
+    masked_flash_attention,
+    masked_flash_attention_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,6 +76,50 @@ def test_int4_kernels_match_plain(cuda_inputs):
     assert bf16_ulps_off(out, ref) == 0
 
 
+@pytest.mark.parametrize("cuda_inputs", [5], indirect=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernels_match_plain(cuda_inputs, dtype):
+    """Codes and scales bit-equal on bf16 and f32 values; the bf16-output
+    gather within 1 bf16 ulp, the f32-output one within 1e-4 x max|plain|."""
+    shapes, value, locs, w = cuda_inputs
+    value = value.to(getattr(torch, dtype))
+    codes, scales = int8_quantize(value, shapes)
+    ref_codes, ref_scales = int8_quantize_plain(value, shapes)
+    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+    out = int8_gather(codes, scales, shapes, locs, w)
+    assert out.dtype == torch.bfloat16
+    assert bf16_ulps_off(out, int8_gather_plain(codes, scales, shapes, locs, w)) == 0
+    out = int8_gather(codes, scales, shapes, locs, w, torch.float32)
+    ref = int8_gather_plain(codes, scales, shapes, locs, w, torch.float32)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("Lk", [2048, 4200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_attn_kernel_matches_plain(Lk, dtype):
+    """A head-shared mask about half set, whole 1024-key spans masked in
+    some rows, a live key in every row; max |kernel - plain| <= 1e-5 (the
+    outputs are averages of N(0, 1) values; the two differ by the order of
+    their f32 sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(Lk)
+    B, H, Lq, D = 2, 8, 100, 32
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(rng.normal(size=(B * H, n, D)), dtype=torch.float32).to(dt)
+               for n in (Lq, Lk, Lk))
+    mask = rng.uniform(size=(B, Lq, Lk)) < 0.5
+    mask[:, ::7, :1024] = True
+    mask[:, np.arange(Lq), rng.integers(0, Lk, Lq)] = False
+    mask = torch.tensor(mask)
+    n = masked_flash_attention.launches
+    out = masked_flash_attention(q.cuda(), k.cuda(), v.cuda(), mask.cuda(), H)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == n + 1 and out.dtype == torch.float32
+    ref = masked_flash_attention_plain(q, k, v, mask, H)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("cuda_inputs", [2], indirect=True)
 @pytest.mark.parametrize("D", [32, 8])
 @pytest.mark.parametrize("inst", ["f32", "bf16", "bf16_grad"])
@@ -88,7 +142,7 @@ def test_bwd_kernel_matches_plain(cuda_inputs, D, inst):
 
 
 @pytest.mark.parametrize("cuda_inputs", [3], indirect=True)
-@pytest.mark.parametrize("impl", ["exact", "int4"])
+@pytest.mark.parametrize("impl", ["exact", "int4", "int8"])
 def test_autograd_reaches_bwd_kernel(cuda_inputs, impl):
     """A backward through the forward kernels launches the backward kernel
     once and gives the plain version's gradients of value, locations and

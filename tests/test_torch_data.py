@@ -1,0 +1,190 @@
+"""Port parity: the data layer of ``pairnet_torch`` (PNG codec, synthetic PSG
+fixture, PSG reader, test-time loader) against PIL and the JAX package."""
+
+import io
+import json
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from pairnet_tpu.config import load_config as j_load_config
+from pairnet_tpu.data.pipeline import Loader as JLoader
+from pairnet_tpu.data.synthetic import make_synthetic_psg as j_make_synthetic
+from pairnet_tpu.train.builder import build_pipeline_cfg as j_build_pipeline_cfg
+
+from test_torch_helpers import TINY_SPLIT, jax_dataset
+
+torch = pytest.importorskip("torch")
+
+from pairnet_torch.config import load_config  # noqa: E402
+from pairnet_torch.data import png  # noqa: E402
+from pairnet_torch.data.pipeline import Loader  # noqa: E402
+from pairnet_torch.data.psg import PSGDataset  # noqa: E402
+from pairnet_torch.data.synthetic import make_synthetic_psg  # noqa: E402
+from pairnet_torch.train.builder import (  # noqa: E402
+    build_dataset,
+    build_pipeline_cfg,
+    synthetic_root,
+)
+
+TINY = "configs/pairnet/tiny_synthetic.py"
+
+
+def _images(seed):
+    """(mode, image) pairs: gray, RGB and RGBA images with ramps, noise, a
+    checkerboard and vertical stripes, on which PIL's adaptive filtering picks the None, Sub, Up
+    and Paeth row filters (it never picks Average)."""
+    rng = np.random.default_rng(seed)
+    h, w = 37, 53
+    yy, xx = np.mgrid[:h, :w]
+    ramp = (3 * xx + 5 * yy) % 256
+    noise = rng.integers(0, 256, (h, w))
+    smooth = np.where((yy // 6) % 2, ramp, (ramp + noise // 16) % 256)
+    planes = [smooth, noise, (ramp * 7) % 256, 255 - smooth]
+    return [("L", smooth.astype(np.uint8)), ("L", (((xx + yy) % 2) * 200).astype(np.uint8)),
+            ("L", ((xx * 37 + seed) % 256).astype(np.uint8)),  # equal rows: Up
+            ("RGB", np.stack(planes[:3], -1).astype(np.uint8)),
+            ("RGBA", np.stack(planes, -1).astype(np.uint8))]
+
+
+def _filtered_png(img, filters):
+    """A PNG of ``img`` (H, W, C) uint8 whose row r uses the filter
+    ``filters[r]`` (0-4), the filters written out as the PNG spec gives them."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int64)
+    rows = []
+    for r in range(h):
+        up = x[r - 1] if r else np.zeros(w * c, np.int64)
+        left = np.concatenate([np.zeros(c, np.int64), x[r, :-c]])
+        upleft = np.concatenate([np.zeros(c, np.int64), up[:-c]])
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        pred = [0, left, up, (left + up) // 2, paeth][filters[r]]
+        rows.append(bytes([filters[r]]) + ((x[r] - pred) % 256).astype(np.uint8).tobytes())
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
+    chunk = lambda kind, data: (struct.pack(">I", len(data)) + kind + data  # noqa: E731
+                                + struct.pack(">I", zlib.crc32(kind + data)))
+    return (png.SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + chunk(b"IEND", b""))
+
+
+def _row_filters(buf):
+    """The row filter bytes of a PNG (one IDAT stream)."""
+    img = png.decode(buf)
+    h = img.shape[0]
+    idat = b""
+    pos = 8
+    while pos < len(buf):
+        n = int.from_bytes(buf[pos : pos + 4], "big")
+        if buf[pos + 4 : pos + 8] == b"IDAT":
+            idat += buf[pos + 8 : pos + 8 + n]
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return set(raw.reshape(h, -1)[:, 0].tolist())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_png_reads_pil_written_files_bit_exactly(seed):
+    """PIL's encoder (adaptive row filters) -> the port's decoder."""
+    filters = set()
+    for mode, arr in _images(seed):
+        buf = io.BytesIO()
+        Image.fromarray(arr, mode=mode).save(buf, format="PNG")
+        got = png.decode(buf.getvalue())
+        np.testing.assert_array_equal(got, arr, err_msg=mode)
+        filters |= _row_filters(buf.getvalue())
+    assert filters == {0, 1, 2, 4}, filters
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_png_every_row_filter_matches_pil(channels):
+    """Rows written with each of the five filters, Average included: the
+    port's decoder and PIL's give the image back."""
+    rng = np.random.default_rng(channels)
+    img = rng.integers(0, 256, (23, 17, channels)).astype(np.uint8)
+    img[5:12] = img[5:6]  # flat runs, so Up and Paeth see zero residuals too
+    buf = _filtered_png(img, [r % 5 for r in range(img.shape[0])])
+    assert _row_filters(buf) == {0, 1, 2, 3, 4}
+    want = img[:, :, 0] if channels == 1 else img
+    np.testing.assert_array_equal(png.decode(buf), want)
+    with Image.open(io.BytesIO(buf)) as im:
+        np.testing.assert_array_equal(np.asarray(im), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pil_reads_port_written_files_bit_exactly(seed, tmp_path):
+    for i, (mode, arr) in enumerate(_images(seed)):
+        path = tmp_path / f"{i}.png"
+        png.write(str(path), arr)
+        with Image.open(path) as im:
+            assert im.mode == mode
+            np.testing.assert_array_equal(np.asarray(im), arr, err_msg=mode)
+        np.testing.assert_array_equal(png.read(str(path)), arr)
+
+
+def test_png_rejects_what_it_does_not_read(tmp_path):
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((4, 4), np.uint8), mode="L").convert("P").save(buf, format="PNG")
+    with pytest.raises(ValueError, match="colour type 3"):
+        png.decode(buf.getvalue())
+    with pytest.raises(ValueError, match="not a PNG"):
+        png.decode(b"GIF89a")
+
+
+def test_synthetic_fixture_and_annotations_equal_jax(tmp_path):
+    """Same options and seed: the same psg.json, the same pixels (the JAX
+    fixture read by PIL, the port's by its own decoder), and the same
+    annotations from both readers."""
+    opts = dict(num_images=5, num_test=2, height=40, width=56, seed=4)
+    j_ann = j_make_synthetic(str(tmp_path / "jax"), **opts)
+    t_ann = make_synthetic_psg(str(tmp_path / "port"), **opts)
+    with open(j_ann) as f, open(t_ann) as g:
+        assert json.load(f) == json.load(g)
+    from pairnet_tpu.data.psg import PSGDataset as JPSGDataset
+
+    for split in ("train", "test"):
+        jd = JPSGDataset("psg.json", data_root=str(tmp_path / "jax"), split=split)
+        td = PSGDataset("psg.json", data_root=str(tmp_path / "port"), split=split)
+        assert len(jd) == len(td) > 0
+        for i in range(len(td)):
+            np.testing.assert_array_equal(td.load_image(i), jd.load_image(i))
+            for a, b in zip(td.load_masks(i), jd.load_masks(i)):
+                np.testing.assert_array_equal(a, b)
+            ja, ta = jd.get_ann_info(i), td.get_ann_info(i)
+            assert set(ja) == set(ta)
+            for k in ja:
+                if isinstance(ja[k], np.ndarray):
+                    np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+                else:
+                    assert ta[k] == ja[k], k
+            jg, jm = jd.load_pan_ids(i)
+            tg, tm = td.load_pan_ids(i)
+            np.testing.assert_array_equal(tg, jg)
+            assert tm == jm
+
+
+@pytest.mark.parametrize("target_size", [None, (256, 512)])
+def test_loader_batches_equal_jax(target_size):
+    """tiny_synthetic, test split, batch 2 (the last batch padded): every
+    array of every batch bit for bit."""
+    overrides = {} if target_size is None else {"data.pipeline.target_size": target_size}
+    jcfg, tcfg = j_load_config(TINY), load_config(TINY)
+    for path, val in overrides.items():
+        jcfg.set_path(path, val)
+        tcfg.set_path(path, val)
+    tds = build_dataset(tcfg, "test")
+    jds = jax_dataset(synthetic_root(TINY_SPLIT), "test")
+    jl = JLoader(jds, j_build_pipeline_cfg(jcfg, train=False), 2, train=False, seed=0)
+    tl = Loader(tds, build_pipeline_cfg(tcfg, train=False), 2)
+    n = 0
+    for jb, tb in zip(jl, tl, strict=True):
+        assert set(jb) == set(tb)
+        for k in jb:
+            assert tb[k].dtype == jb[k].dtype, k
+            np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+        n += 1
+    assert n == len(tl) == 2

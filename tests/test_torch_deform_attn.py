@@ -21,8 +21,14 @@ torch.set_num_threads(1)
 
 from pairnet_torch.ops.deform_attn import ms_deform_attn, ms_deform_attn_plain  # noqa: E402
 from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
+    int4_gather_plain,
     int4_quantize,
+    int4_quantize_plain,
     ms_deform_attn_int4,
+)
+from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
+    int8_gather_plain,
+    int8_quantize_plain,
 )
 
 
@@ -112,13 +118,23 @@ def test_int4_plain_matches_v16_interpret():
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=1e-3)
 
 
-@pytest.mark.parametrize("impl", [None, "exact", "int4", "plain"])
+@pytest.mark.parametrize("impl", [None, "exact", "int4", "int8", "plain"])
 def test_cpu_dispatch_takes_plain(impl):
-    """On CPU tensors every impl runs the plain exact MSDA."""
+    """On CPU tensors every impl computes what it computes on the card,
+    through its kernels' plain versions: the exact impls the plain MSDA,
+    "int4" and "int8" their quantize, then their gather (bf16 out)."""
     shapes, value, locs, w = msda_inputs(seed=6, B=1, H=2, D=8, Q=50)
-    args = (torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
-    out = ms_deform_attn(*args, impl=impl)
-    assert torch.equal(out, ms_deform_attn_plain(*args))
+    v, lc, wt = torch.tensor(value), torch.tensor(locs), torch.tensor(w)
+    out = ms_deform_attn(v, shapes, lc, wt, impl=impl)
+    if impl in ("int4", "int8"):
+        quantize, gather = {"int4": (int4_quantize_plain, int4_gather_plain),
+                            "int8": (int8_quantize_plain, int8_gather_plain)}[impl]
+        want = gather(*quantize(v, shapes), shapes, lc, wt)
+        assert out.dtype == torch.bfloat16
+        assert not torch.equal(out.float(), ms_deform_attn_plain(v, shapes, lc, wt))
+    else:
+        want = ms_deform_attn_plain(v, shapes, lc, wt)
+    assert torch.equal(out, want)
 
 
 def test_unknown_impl_raises():

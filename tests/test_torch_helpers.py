@@ -7,6 +7,15 @@ arrays. Holds no tests itself.
 import numpy as np
 
 MSDA_SHAPES = ((20, 30), (10, 15), (5, 8))
+TINY_SPLIT = {"num_images": 8, "num_test": 3, "seed": 1}  # tiny_synthetic's fixture
+
+
+def jax_dataset(port_dataset_root, split):
+    """The JAX package's PSGDataset on the port's synthetic fixture (the same
+    files for both packages; the fixtures' equality is tested on its own)."""
+    from pairnet_tpu.data.psg import PSGDataset
+
+    return PSGDataset("psg.json", data_root=port_dataset_root, split=split)
 
 
 def msda_inputs(seed=0, wild=False, B=2, H=4, D=32, Q=700, P=4, shapes=MSDA_SHAPES):

@@ -1,5 +1,6 @@
-"""Rules of the PyTorch port: no JAX inside it, CUDA by default and no
-fallback from a CUDA tensor, kernel launch counters, build errors."""
+"""Rules of the PyTorch port: no JAX inside it (and no PIL at module level),
+CUDA by default and no fallback from a CUDA tensor, kernel launch counters,
+build rules and build errors."""
 
 import ast
 import subprocess
@@ -18,7 +19,10 @@ from pairnet_torch import flagship as flagship_mod  # noqa: E402
 from pairnet_torch.ops import _build  # noqa: E402
 from pairnet_torch.ops.deform_attn import ms_deform_attn  # noqa: E402
 from pairnet_torch.ops.deform_attn_exact import deform_attn_exact  # noqa: E402
+from pairnet_torch.ops import deform_attn_int4, masked_attn  # noqa: E402
 from pairnet_torch.ops.deform_attn_int4 import int4_gather, int4_quantize  # noqa: E402
+from pairnet_torch.ops.deform_attn_int8 import int8_gather, int8_quantize  # noqa: E402
+from pairnet_torch.ops.masked_attn import masked_flash_attention  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "pairnet_tpu"}
@@ -42,11 +46,23 @@ def test_port_imports_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_pil_at_module_level(path):
+    """The card has no PIL: the port imports it only inside the functions
+    that need it (non-PNG images, the numpy oracle's mask resize)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        assert not any(n.split(".")[0] == "PIL" for n in names), f"{path}:{node.lineno}"
+
+
 def test_import_leaves_jax_out():
     code = (
-        "import sys, pairnet_torch.flagship, pairnet_torch.bench; "
+        "import sys, pairnet_torch.flagship, pairnet_torch.bench, pairnet_torch.tools.test, "
+        "pairnet_torch.evaluation.runner, pairnet_torch.train.builder; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'pairnet_tpu')); assert not bad, bad"
+        "('jax', 'flax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
@@ -60,19 +76,123 @@ def test_flagship_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert flagship_mod.resolve_device("cpu").type == "cpu"
 
 
+def _launches():
+    return [deform_attn_exact.launches, int4_quantize.launches, int4_gather.launches,
+            dict(int8_quantize.launches), dict(int8_gather.launches),
+            masked_flash_attention.launches]
+
+
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
-    wrappers = (deform_attn_exact, int4_quantize, int4_gather)
-    before = [w.launches for w in wrappers]
+    before = _launches()
     shapes, value, locs, w = msda_inputs(seed=7, B=1, H=2, D=8, Q=30)
     v, lc, wt = torch.tensor(value), torch.tensor(locs), torch.tensor(w)
     out = deform_attn_exact(v, shapes, lc, wt)
     codes, scales = int4_quantize(v, shapes)
     out4 = int4_gather(codes, scales, shapes, lc, wt)
-    for impl in (None, "exact", "int4"):
+    codes8, scales8 = int8_quantize(v, shapes)
+    out8 = int8_gather(codes8, scales8, shapes, lc, wt)
+    for impl in (None, "exact", "int4", "int8"):
         ms_deform_attn(v, shapes, lc, wt, impl=impl)
-    assert [w.launches for w in wrappers] == before
-    assert out.dtype == torch.float32 and out4.dtype == torch.bfloat16
+    q = torch.randn(4, 5, 8)
+    flash = masked_flash_attention(q, torch.randn(4, 9, 8), torch.randn(4, 9, 8),
+                                   torch.rand(2, 5, 9) < 0.5, 2)
+    assert _launches() == before
+    assert out.dtype == torch.float32 and out4.dtype == out8.dtype == torch.bfloat16
+    assert flash.dtype == torch.float32 and np.isfinite(flash.numpy()).all()
     assert np.isfinite(out.numpy()).all()
+
+
+def test_new_wrappers_take_no_plain_version_off_the_cpu():
+    """A tensor on another device than the CPU reaches a kernel or raises;
+    it never takes the plain version (meta tensors stand in for a device)."""
+    shapes = ((2, 3),)
+    v = torch.empty((1, 6, 2, 8), device="meta")
+    lc = torch.empty((1, 4, 2, 1, 2, 2), device="meta")
+    wt = torch.empty((1, 4, 2, 1, 2), device="meta")
+    codes = torch.empty((1, 6, 2, 8), dtype=torch.int8, device="meta")
+    scales = torch.empty((1, 2, 1, 8), device="meta")
+    q = torch.empty((2, 5, 8), device="meta")
+    kv = torch.empty((2, 9, 8), device="meta")
+    mask = torch.empty((1, 5, 9), dtype=torch.bool, device="meta")
+    before = _launches()
+    for call in (lambda: int8_quantize(v, shapes),
+                 lambda: int8_gather(codes, scales, shapes, lc, wt),
+                 lambda: masked_flash_attention(q, kv, kv, mask, 2)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert _launches() == before
+
+
+def test_cuda_tensor_without_a_card_raises(monkeypatch):
+    """No card: the wrappers of the new kernels raise for a tensor that
+    claims the CUDA device (they allocate on it, which a CPU build refuses)."""
+    class CudaMeta(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda")
+
+    def fake(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype).as_subclass(CudaMeta)
+
+    shapes = ((2, 3),)
+    for call in (lambda: int8_quantize(fake((1, 6, 2, 8)), shapes),
+                 lambda: int8_gather(fake((1, 6, 2, 8), torch.int8), fake((1, 2, 1, 8)), shapes,
+                                     fake((1, 4, 2, 1, 2, 2)), fake((1, 4, 2, 1, 2))),
+                 lambda: masked_flash_attention(fake((2, 5, 8)), fake((2, 9, 8)),
+                                                fake((2, 9, 8)), fake((1, 5, 9), torch.bool), 2)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            call()
+
+
+@pytest.mark.parametrize("lib", [deform_attn_int4._lib, masked_attn._lib],
+                         ids=["deform_attn_quant", "masked_attn"])
+def test_failed_build_raises_from_the_new_wrappers(monkeypatch, lib):
+    def fail(name):
+        raise _build.BuildError(f"CUDA build failed: {name}.cu")
+
+    monkeypatch.setattr(_build, "load", fail)
+    lib.cache_clear()
+    with pytest.raises(_build.BuildError, match="CUDA build failed"):
+        lib()
+    lib.cache_clear()
+
+
+def test_every_source_is_built_and_binds_its_entry_points():
+    """``_build.SOURCES`` is every ``csrc/*.cu``, and each C entry point a
+    wrapper binds is defined in its source."""
+    assert set(_build.SOURCES) == {p.stem for p in _build.CSRC.glob("*.cu")}
+    entries = {
+        "deform_attn_quant": deform_attn_int4.QUANTIZE_FNS + deform_attn_int4.GATHER_FNS,
+        "masked_attn": tuple(masked_attn._FN.values()),
+    }
+    for source, names in entries.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        for name in names:
+            assert f"ENTRY({name}," in text or f'extern "C" int {name}(' in text, (source, name)
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_build_runs_one_nvcc_per_source(monkeypatch, tmp_path, fail):
+    """``build()`` starts one nvcc per source, all at once, and raises
+    naming the source when one fails."""
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    f"case \"$*\" in *masked_attn.cu*) [ {int(fail)} = 1 ] && exit 3;; esac\n"
+                    "while [ \"$1\" != -o ]; do shift; done; touch \"$2\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        with pytest.raises(_build.BuildError, match="masked_attn.cu"):
+            _build.build()
+    else:
+        targets = _build.build()
+        assert set(targets) == set(_build.SOURCES) and all(t.exists() for t in targets.values())
+    calls = log.read_text().splitlines()
+    assert sorted(c.split()[-1].rsplit("/", 1)[1] for c in calls) == sorted(
+        f"{n}.cu" for n in _build.SOURCES)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
