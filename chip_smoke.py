@@ -48,7 +48,9 @@ result line then):
  11. the int8 kernels on the inputs phase 10's first encoder layer handed
      them, the flash kernel on those of the first decoder layer at each key
      length, with phase 2's tolerances; their timings, SDPA's for the flash
-     kernel, and scoring images/s.
+     kernel (whose bound takes its operations at the tensor-core rate of
+     its products, PR 3's f32-rate bound logged beside), and scoring
+     images/s.
 Then one JSON line of kernels, one of serving, one of training, one of
 evaluation, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}.
@@ -72,14 +74,20 @@ DEVICE = "cuda:0"
 H, D, P = 8, 32, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+# H100 SXM tensor cores, dense: bf16 products, and f32 as 3xTF32 (three
+# TF32 products per f32 product) at a third of the TF32 rate
+TC_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 TOL_EXACT_F32 = 1e-4  # max |kernel - plain|, f32 values
 TOL_EXACT_BF16_REL = 1e-3  # max |kernel - plain| / max |plain|, bf16 values
 TOL_FORWARD_REL = 1e-3  # phase 4: max |exact - plain| / max(1, max |plain|)
 TOL_TRAIN_REL = 1e-3  # phase 7: losses within it x max(1, |plain|), each gradient x its max |plain|
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
 # masked_attn: max |kernel - plain| / max(1, max |plain|). The two sum the
-# f32 scores in another order, and a score's rounding error grows with its
-# size: ~5e-7 on N(0, 1) inputs, ~1e-5 on the decoder's (measured on an H100)
+# f32 scores in another order (the kernel on tensor cores: exact bf16
+# products, or 3xTF32 for f32; P.V with P in bf16 hi and lo parts), and a
+# score's rounding error grows with its size: 3e-7 to 5e-7 on N(0, 1)
+# inputs, up to 6.4e-5 on the decoder's, whose max |plain| is ~5 (measured
+# on an H100)
 TOL_FLASH = 1e-4
 LQ = 100  # decoder queries
 SCORE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -445,11 +453,13 @@ def main():
     kernels = []
 
     def record(name, launches, kernel_fn, plain_fn, compare, in_t, flops, note, phase=5,
-               library_fn=None, **where):
+               library_fn=None, peak_flops=F32_FLOPS, **where):
         """Check the kernel against its plain version on the main path's
         inputs, time both (and ``library_fn``, one PyTorch call of the same
         function, where there is one), and add the kernel's entry
-        (``where``: source, replaces) unless ``launches`` is None."""
+        (``where``: source, replaces) unless ``launches`` is None. The
+        bound's operations term runs at ``peak_flops``: the rate of the
+        units and type the kernel's products use."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         d = compare(out, ref)
@@ -459,13 +469,14 @@ def main():
         library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
         out_t = out if isinstance(out, tuple) else (out,)
         t_bytes = nbytes(*in_t, *out_t) / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
+        t_ops = flops / peak_flops * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         if launches is not None:
             kernels.append({
                 "name": name, "route": "cuda", **where, "launches": launches, "max_abs_err": d,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": bound_by, "library_ms": library_ms,
+                "bound_terms_ms": {"bytes": t_bytes, "operations": t_ops},
             })
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[{phase}] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
@@ -858,15 +869,19 @@ def main():
             B_ = mask.shape[0]
             q4, k4, v4 = (t.float().reshape(B_, H, t.shape[1], D) for t in (q, k, v))
             attend = ~mask[:, None]
+            flops = 4 * q.shape[0] * q.shape[1] * Lk * D
             record(f"masked_attn ({dname}, Lk {Lk})", 0,
                    lambda: masked_flash_attention(q, k, v, mask, H),
                    lambda: masked_flash_attention_plain(q, k, v, mask, H), compare_flash,
-                   (q, k, v, mask), 4 * q.shape[0] * q.shape[1] * Lk * D,
+                   (q, k, v, mask), flops,
                    f"{dname} scoring batch {BATCH}, first decoder layer with {Lk} keys, "
-                   f"max|d|", phase=11,
+                   f"max|d|, products at {TC_FLOPS[dt] / 1e12:.0f} TFLOP/s", phase=11,
                    library_fn=lambda: F.scaled_dot_product_attention(q4, k4, v4, attend),
-                   source="pairnet_torch/csrc/masked_attn.cu",
+                   peak_flops=TC_FLOPS[dt], source="pairnet_torch/csrc/masked_attn.cu",
                    replaces="pairnet_tpu/ops/pallas_masked_attn.py:45")
+            # PR 3's bound, the operations at the f32 rate of the CUDA cores
+            kernels[-1]["bound_ms_f32_rate"] = max(kernels[-1]["bound_terms_ms"]["bytes"],
+                                                   flops / F32_FLOPS * 1e3)
         # one entry per instance: per-call numbers averaged over the key
         # lengths in the proportion of the path's calls
         per_lk = {Lk: kernels.pop(-len(lks) + i) for i, Lk in enumerate(lks)}
@@ -879,9 +894,11 @@ def main():
             entry[key] = sum(share[Lk] * e[key] for Lk, e in per_lk.items())
         entry["bound_by"] = ("operations" if all(e["bound_by"] == "operations"
                                                  for e in per_lk.values()) else "bytes")
-        entry["per_lk"] = {str(Lk): {key: e[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                             "bound_by", "library_ms")}
-                           for Lk, e in per_lk.items()}
+        entry["per_lk"] = {str(Lk): {key: e[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_terms_ms",
+            "bound_ms_f32_rate")} for Lk, e in per_lk.items()}
+        for key in ("bound_terms_ms", "bound_ms_f32_rate"):
+            entry.pop(key)
         entry["calls_per_lk"] = {str(Lk): n for Lk, n in calls.items()}
         kernels.append(entry)
     for entry in kernels[n_before:]:

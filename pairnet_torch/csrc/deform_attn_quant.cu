@@ -31,11 +31,23 @@
 //
 // Bounds on an H100: bytes for both. quantize reads the value twice (absmax
 // pass, then quantize pass; the least traffic counts it once) and writes one
-// byte per element. gather reads the codes, locations and weights and writes
-// bf16 or f32; it is the exact kernel's design (one thread per output
-// (b, q, h, d), d fastest, coalesced code rows) at a quarter of the f32
-// value bytes.
-
+// byte per element. gather reads the codes, locations and weights once
+// (least traffic; its corner reads, 32-byte sectors of a head's codes, come
+// mostly from L2, which holds the codes) and writes bf16 or f32.
+//
+// Gather design: one warp per (b, q), covering every head. The tap geometry
+// (coordinates, the four corners' tokens, in-plane tests, corner weights)
+// is computed once per (h, l, p) by one lane and shared through shared
+// memory, instead of once per output channel. Lane i owns 8 consecutive
+// channels of one head (at H = 8, D = 32: head i / 4): each corner is one
+// 8-byte load of 8 codes (a head's 32 channels are one 32-byte sector), the
+// output one 16-byte (bf16) store. A level's taps are unrolled by 4, so its
+// 16 corner loads are in flight before any is used. Codes become f32
+// exactly by a byte permute into the mantissa of 2^23 and one subtract.
+// Attention weights are read in their own dtype (bf16 on the serving path).
+// Per channel, the arithmetic and its order are those of the one-thread-
+// per-channel design it replaces (corner order, tap order, scale per level).
+//
 #include "msda_common.cuh"
 
 namespace {
@@ -93,68 +105,158 @@ __global__ void quantize_kernel(const T* __restrict__ value, const unsigned* __r
   }
 }
 
-// One level's int8 tap sum for one output channel, in the TPU int8 kernels'
-// arithmetic: each in-plane corner adds code * ((corner weight) * a).
-__device__ __forceinline__ float level_taps_int8(const int8_t* __restrict__ vl, long long row,
-                                                 int hl, int wl,
-                                                 const float* __restrict__ loc,
-                                                 const float* __restrict__ wt, int P) {
-  float acc = 0.f;
-  for (int p = 0; p < P; ++p) {
-    const float x = loc[2 * p] * wl - 0.5f;
-    const float y = loc[2 * p + 1] * hl - 0.5f;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    // no corner inside the plane; this also keeps the int casts in range
-    if (!(x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f && y0f <= (float)(hl - 1)))
-      continue;
-    const float fx = x - x0f;
-    const float fy = y - y0f;
-    const float a = wt[p];
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
-    const bool xa = x0 >= 0, xb = x0 + 1 < wl;
-    const bool ya = y0 >= 0, yb = y0 + 1 < hl;
-    float s = 0.f;
-    if (ya && xa) s += (float)vl[((long long)y0 * wl + x0) * row] * ((1.f - fx) * (1.f - fy) * a);
-    if (ya && xb) s += (float)vl[((long long)y0 * wl + x0 + 1) * row] * (fx * (1.f - fy) * a);
-    if (yb && xa) s += (float)vl[((long long)(y0 + 1) * wl + x0) * row] * ((1.f - fx) * fy * a);
-    if (yb && xb) s += (float)vl[((long long)(y0 + 1) * wl + x0 + 1) * row] * (fx * fy * a);
-    acc += s;
-  }
-  return acc;
+// One tap (h, l, p) of a query, computed once by one lane of the warp and
+// read by every lane of head h from shared memory.
+struct alignas(16) Tap {
+  int4 tok;  // the four corners' tokens in S, clamped into the level's plane
+  float4 w;  // corner weights, 0 for a corner off the plane; int8: times a
+  float a;   // the attention weight (int4 taps)
+};
+
+constexpr int kGatherWarps = 4;  // warps per block, one (b, q) each
+
+// Code k (0..3) of a word of four int8 codes, as an exact f32: the byte
+// xor 0x80 (= code + 128) becomes the low mantissa bits of 2^23.
+__device__ __forceinline__ float code_f32(uint32_t biased, int k) {
+  return __int_as_float((int)__byte_perm(biased, 0x4Bu, 0x4550u | k)) - 8388736.f;
 }
 
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  u.x = *reinterpret_cast<uint32_t*>(&h[0]);
+  u.y = *reinterpret_cast<uint32_t*>(&h[1]);
+  u.z = *reinterpret_cast<uint32_t*>(&h[2]);
+  u.w = *reinterpret_cast<uint32_t*>(&h[3]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
 
-template <typename OutT, bool kInt8Taps>
-__global__ void gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
-                              const float* __restrict__ locs, const float* __restrict__ weights,
-                              OutT* __restrict__ out, int B, int S, int Q, int H, int D, int P,
-                              Levels lv) {
-  const long long total = (long long)B * Q * H * D;
-  const long long row = (long long)H * D;
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// One warp per (b, q), covering all H heads. Lane i owns the 8-channel
+// groups i, i + 32, ... of the query's H * D channels.
+template <typename OutT, typename WT, bool kInt8Taps>
+__global__ void __launch_bounds__(kGatherWarps * 32)
+gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
+              const float* __restrict__ locs, const WT* __restrict__ weights,
+              OutT* __restrict__ out, int B, int S, int Q, int H, int D, int P, Levels lv) {
+  extern __shared__ Tap taps_all[];
   const int L = lv.n;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int d = (int)(i % D);
-    const long long bqh = i / D;  // (b * Q + q) * H + h
-    const int h = (int)(bqh % H);
-    const int b = (int)(bqh / H / Q);
-    const float* loc = locs + bqh * L * P * 2;
-    const float* wt = weights + bqh * L * P;
-    const int8_t* vb = codes + (long long)b * S * row + (long long)h * D + d;
-    const float* sc = scales + ((long long)b * H + h) * L * D + d;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int8_t* vl = vb + lv.start[l] * row;
-      const float taps = kInt8Taps
-          ? level_taps_int8(vl, row, lv.h[l], lv.w[l], loc + l * P * 2, wt + l * P, P)
-          : level_taps(vl, row, lv.h[l], lv.w[l], loc + l * P * 2, wt + l * P, P);
-      acc += sc[l * D] * taps;
+  const int HLP = H * L * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long bq = (long long)blockIdx.x * kGatherWarps + warp;
+  if (bq >= (long long)B * Q) return;  // the whole warp; no block barrier follows
+  const int b = (int)(bq / Q);
+  Tap* taps = taps_all + warp * HLP;
+
+  // the geometry of each tap once, the lanes taking taps lane, lane + 32, ...
+  const float2* loc = reinterpret_cast<const float2*>(locs) + bq * HLP;
+  const WT* wt = weights + bq * HLP;
+  for (int i = lane; i < HLP; i += 32) {
+    const int l = (i / P) % L;
+    const float2 xy = loc[i];
+    const float a = to_f32(wt[i]);
+    const int hl = lv.h[l], wl = lv.w[l];
+    const float x = xy.x * wl - 0.5f;
+    const float y = xy.y * hl - 0.5f;
+    const float x0f = floorf(x);
+    const float y0f = floorf(y);
+    Tap tp;
+    tp.a = a;
+    tp.tok = make_int4(0, 0, 0, 0);
+    tp.w = make_float4(0.f, 0.f, 0.f, 0.f);
+    // a tap with no corner in the plane adds 0; this also keeps the int casts in range
+    if (x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f && y0f <= (float)(hl - 1)) {
+      const float fx = x - x0f;
+      const float fy = y - y0f;
+      const int x0 = (int)x0f;
+      const int y0 = (int)y0f;
+      const bool xa = x0 >= 0, xb = x0 + 1 < wl;
+      const bool ya = y0 >= 0, yb = y0 + 1 < hl;
+      const int xl = xa ? x0 : 0, xr = xb ? x0 + 1 : wl - 1;
+      const int yt = ya ? y0 : 0, ybt = yb ? y0 + 1 : hl - 1;
+      const int s0 = (int)lv.start[l];
+      tp.tok = make_int4(s0 + yt * wl + xl, s0 + yt * wl + xr, s0 + ybt * wl + xl,
+                         s0 + ybt * wl + xr);
+      float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
+      float w10 = (1.f - fx) * fy, w11 = fx * fy;
+      if (kInt8Taps) {  // the TPU int8 kernels' order: (corner weight) * a
+        w00 *= a;
+        w01 *= a;
+        w10 *= a;
+        w11 *= a;
+      }
+      tp.w = make_float4(ya && xa ? w00 : 0.f, ya && xb ? w01 : 0.f, yb && xa ? w10 : 0.f,
+                         yb && xb ? w11 : 0.f);
     }
-    store(out + i, acc);
+    taps[i] = tp;
+  }
+  __syncwarp();
+
+  const int G = D / 8;  // 8-channel groups per head
+  const long long row = (long long)H * D;
+  for (int gi = lane; gi < H * G; gi += 32) {
+    const int h = gi / G, c8 = (gi % G) * 8;
+    const int8_t* cb = codes + (long long)b * S * row + (long long)h * D + c8;
+    const float* sc = scales + ((long long)b * H + h) * L * D + c8;
+    float acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    for (int l = 0; l < L; ++l) {
+      const Tap* tl = taps + (h * L + l) * P;
+      float lt[8];  // the level's tap sum
+#pragma unroll
+      for (int c = 0; c < 8; ++c) lt[c] = 0.f;
+      for (int p0 = 0; p0 < P; p0 += 4) {
+        // the corner loads of up to 4 taps, issued before any is used
+        uint2 raw[4][4];
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (p0 + pp < P) {
+            const int4 tk = tl[p0 + pp].tok;
+            raw[pp][0] = __ldg(reinterpret_cast<const uint2*>(cb + tk.x * row));
+            raw[pp][1] = __ldg(reinterpret_cast<const uint2*>(cb + tk.y * row));
+            raw[pp][2] = __ldg(reinterpret_cast<const uint2*>(cb + tk.z * row));
+            raw[pp][3] = __ldg(reinterpret_cast<const uint2*>(cb + tk.w * row));
+          }
+        }
+#pragma unroll
+        for (int pp = 0; pp < 4; ++pp) {
+          if (p0 + pp >= P) continue;
+          const float4 w4 = tl[p0 + pp].w;
+          const float cw[4] = {w4.x, w4.y, w4.z, w4.w};
+          float s[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s[c] = 0.f;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {  // corners in order 00, 01, 10, 11
+            const uint32_t lo = raw[pp][k].x ^ 0x80808080u, hi = raw[pp][k].y ^ 0x80808080u;
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              s[c] = fmaf(cw[k], code_f32(c < 4 ? lo : hi, c & 3), s[c]);
+          }
+          if (kInt8Taps) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) lt[c] += s[c];
+          } else {
+            const float a = tl[p0 + pp].a;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) lt[c] = fmaf(a, s[c], lt[c]);
+          }
+        }
+      }
+      const float4 sa = *reinterpret_cast<const float4*>(sc + l * D);
+      const float4 sb = *reinterpret_cast<const float4*>(sc + l * D + 4);
+      const float sv[8] = {sa.x, sa.y, sa.z, sa.w, sb.x, sb.y, sb.z, sb.w};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] = fmaf(sv[c], lt[c], acc[c]);
+    }
+    store8(out + bq * row + (long long)h * D + c8, acc);
   }
 }
 
@@ -184,18 +286,37 @@ int quantize(const void* value, void* amax, void* codes, void* scales, int B, in
   return (int)cudaGetLastError();
 }
 
-template <typename OutT, bool kInt8Taps>
-int gather(const void* codes, const void* scales, const void* locs, const void* weights,
-           void* out, int B, int S, int Q, int H, int D, int L, int P, const int* hw,
-           void* stream) {
-  Levels lv;
-  if (!make_levels(hw, L, &lv)) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long total = (long long)B * Q * H * D;
-  gather_kernel<OutT, kInt8Taps><<<grid_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)codes, (const float*)scales, (const float*)locs, (const float*)weights,
+template <typename OutT, typename WT, bool kInt8Taps>
+int gather_w(const void* codes, const void* scales, const void* locs, const void* weights,
+             void* out, int B, int S, int Q, int H, int D, int P, const Levels& lv,
+             cudaStream_t st) {
+  const size_t smem = (size_t)kGatherWarps * H * lv.n * P * sizeof(Tap);
+  auto kern = gather_kernel<OutT, WT, kInt8Taps>;
+  int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const long long blocks = ((long long)B * Q + kGatherWarps - 1) / kGatherWarps;
+  kern<<<(unsigned)blocks, kGatherWarps * 32, smem, st>>>(
+      (const int8_t*)codes, (const float*)scales, (const float*)locs, (const WT*)weights,
       (OutT*)out, B, S, Q, H, D, P, lv);
   return (int)cudaGetLastError();
+}
+
+template <typename OutT, bool kInt8Taps>
+int gather(const void* codes, const void* scales, const void* locs, const void* weights,
+           void* out, int B, int S, int Q, int H, int D, int L, int P, int weights_bf16,
+           const int* hw, void* stream) {
+  Levels lv;
+  if (!make_levels(hw, L, &lv)) return (int)cudaErrorInvalidValue;
+  if (H < 1 || P < 1 || D < 8 || D > 64 || D % 8 != 0 ||
+      (long long)kGatherWarps * H * L * P * sizeof(Tap) > 227 * 1024 ||
+      ((long long)B * Q + kGatherWarps - 1) / kGatherWarps > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return weights_bf16
+             ? gather_w<OutT, __nv_bfloat16, kInt8Taps>(codes, scales, locs, weights, out, B, S,
+                                                        Q, H, D, P, lv, st)
+             : gather_w<OutT, float, kInt8Taps>(codes, scales, locs, weights, out, B, S, Q, H,
+                                                D, P, lv, st);
 }
 
 }  // namespace
@@ -212,13 +333,14 @@ QUANTIZE_ENTRY(int8_quantize_bf16, __nv_bfloat16, 127)
 QUANTIZE_ENTRY(int8_quantize_f32, float, 127)
 
 // codes int8 (B, S, H, D); scales f32 (B, H, L, D); locs f32 (B, Q, H, L, P, 2);
-// weights f32 (B, Q, H, L, P); out (B, Q, H * D).
+// weights (B, Q, H, L, P), bf16 if weights_bf16 else f32; out (B, Q, H * D).
+// D a multiple of 8 up to 64; every pointer aligned to its vector loads.
 #define GATHER_ENTRY(name, OutT, int8_taps)                                                \
   extern "C" int name(const void* codes, const void* scales, const void* locs,            \
                       const void* weights, void* out, int B, int S, int Q, int H, int D,   \
-                      int L, int P, const int* hw, void* stream) {                         \
+                      int L, int P, int weights_bf16, const int* hw, void* stream) {       \
     return gather<OutT, int8_taps>(codes, scales, locs, weights, out, B, S, Q, H, D, L, P, \
-                                   hw, stream);                                            \
+                                   weights_bf16, hw, stream);                              \
   }
 GATHER_ENTRY(int4_gather, __nv_bfloat16, false)
 GATHER_ENTRY(int8_gather_bf16, __nv_bfloat16, true)

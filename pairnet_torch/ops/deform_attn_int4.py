@@ -46,7 +46,7 @@ def _lib():
         getattr(lib, name).argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
         getattr(lib, name).restype = ctypes.c_int
     for name in GATHER_FNS:
-        getattr(lib, name).argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+        getattr(lib, name).argtypes = [_P] * 5 + [_I] * 8 + [_P, _P]
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -117,7 +117,8 @@ def launch_quantize(fn: str, what: str, value, spatial_shapes):
 def launch_gather(fn: str, what: str, out_dtype, codes, scales, spatial_shapes,
                   sampling_locations, attention_weights):
     """Launch the gather entry ``fn`` on CUDA codes and scales: an
-    ``out_dtype`` tensor (B, Q, H * D)."""
+    ``out_dtype`` tensor (B, Q, H * D). The kernel reads bf16 or f32
+    attention weights as they come; D is a multiple of 8 up to 64."""
     if codes.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {codes.device}")
     if codes.dtype != torch.int8 or scales.dtype != torch.float32:
@@ -127,17 +128,24 @@ def launch_gather(fn: str, what: str, out_dtype, codes, scales, spatial_shapes,
     L = len(spatial_shapes)
     if scales.shape != (B, H, L, D) or scales.device != codes.device:
         raise ValueError(f"{what}: scales {tuple(scales.shape)} are not {(B, H, L, D)}")
-    codes = codes.contiguous()
-    scales = scales.contiguous()
-    locs = sampling_locations.float().contiguous()
-    weights = attention_weights.float().contiguous()
+    if D % 8 or not 8 <= D <= 64:
+        raise ValueError(f"{what}: the kernel takes D a multiple of 8 up to 64, not {D}")
+    # contiguous, and aligned for the kernel's vector loads and stores
+    weights = attention_weights
+    if weights.dtype != torch.bfloat16:
+        weights = weights.float()
+    codes, scales, locs, weights = (t.contiguous() for t in (
+        codes, scales, sampling_locations.float(), weights))
+    codes, scales, locs, weights = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                    for t in (codes, scales, locs, weights))
     Q, P = locs.shape[1], locs.shape[4]
     out = torch.empty((B, Q, H * D), dtype=out_dtype, device=codes.device)
     hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(codes.device):
         status = getattr(_lib(), fn)(
             codes.data_ptr(), scales.data_ptr(), locs.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), B, S, Q, H, D, L, P, ctypes.addressof(hw),
+            out.data_ptr(), B, S, Q, H, D, L, P, int(weights.dtype == torch.bfloat16),
+            ctypes.addressof(hw),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, what)

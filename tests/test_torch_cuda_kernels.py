@@ -35,6 +35,7 @@ from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
     int8_quantize_plain,
 )
 from pairnet_torch.ops.masked_attn import (  # noqa: E402
+    chunk_keys,
     masked_flash_attention,
     masked_flash_attention_plain,
 )
@@ -100,7 +101,8 @@ def test_masked_attn_kernel_matches_plain(Lk, dtype):
     """A head-shared mask about half set, whole 1024-key spans masked in
     some rows, a live key in every row; max |kernel - plain| <= 1e-5 (the
     outputs are averages of N(0, 1) values; the two differ by the order of
-    their f32 sums)."""
+    their f32 sums and, in bf16, by the ~2^-18 relative residual of P's
+    hi/lo split)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     rng = np.random.default_rng(Lk)
@@ -118,6 +120,67 @@ def test_masked_attn_kernel_matches_plain(Lk, dtype):
     assert masked_flash_attention.launches == n + 1 and out.dtype == torch.float32
     ref = masked_flash_attention_plain(q, k, v, mask, H)
     assert float((out.cpu() - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("H, D", [(4, 8), (4, 32), (8, 8), (8, 32)])
+@pytest.mark.parametrize("gather", ["int4", "int8 bf16", "int8 f32"])
+def test_gather_kernels_heads_and_widths(H, D, gather):
+    """The warp-per-query gathers at H in {4, 8} and D in {8, 32}, with bf16
+    attention weights as the serving path hands them over: bf16 out within 1
+    bf16 ulp of plain, f32 out within 1e-4 x max|plain|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shapes, value, locs, w = msda_inputs(seed=6, wild=True, H=H, D=D)
+    value, locs = torch.tensor(value, device="cuda"), torch.tensor(locs, device="cuda")
+    w = torch.tensor(w, device="cuda").to(torch.bfloat16)
+    if gather == "int4":
+        codes, scales = int4_quantize_plain(value, shapes)
+        out = int4_gather(codes, scales, shapes, locs, w)
+        ref = int4_gather_plain(codes, scales, shapes, locs, w)
+    else:
+        out_dtype = torch.bfloat16 if gather == "int8 bf16" else torch.float32
+        codes, scales = int8_quantize_plain(value, shapes)
+        out = int8_gather(codes, scales, shapes, locs, w, out_dtype)
+        ref = int8_gather_plain(codes, scales, shapes, locs, w, out_dtype)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (value.shape[0], locs.shape[1], H * D)
+    if out.dtype == torch.bfloat16:
+        assert bf16_ulps_off(out, ref) == 0
+    else:
+        assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("D", [8, 32])
+@pytest.mark.parametrize("Lq", [1, 17, 100])
+@pytest.mark.parametrize("Lk", [2049, 4200, 16800])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_attn_kernel_edge_cases(Lk, Lq, D, dtype):
+    """The chunked tensor-core kernel against the plain version on the
+    card, N(0, 1) x 5 inputs: a head-shared mask about half set, one row
+    masked everywhere (it averages all values), the second key chunk wholly
+    masked in every row, a live key elsewhere in every other row. Within
+    1e-4 x max(1, max|plain|), chip_smoke.py's TOL_FLASH."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(Lk + Lq + D)
+    B, H = 2, 8
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(5 * rng.normal(size=(B * H, n, D)), dtype=torch.float32,
+                            device="cuda").to(dt) for n in (Lq, Lk, Lk))
+    ck = chunk_keys(B, Lk, torch.cuda.get_device_properties(0).multi_processor_count)
+    mask = rng.uniform(size=(B, Lq, Lk)) < 0.5
+    mask[:, :, ck : 2 * ck] = True
+    live = rng.integers(0, Lk - ck, (B, Lq))
+    live = np.where(live >= ck, live + ck, live)  # outside the masked chunk
+    mask[np.arange(B)[:, None], np.arange(Lq)[None], live] = False
+    mask[:, Lq // 2] = True
+    mask = torch.tensor(mask, device="cuda")
+    n = masked_flash_attention.launches
+    out = masked_flash_attention(q, k, v, mask, H)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == n + 1 and out.dtype == torch.float32
+    ref = masked_flash_attention_plain(q, k, v, mask, H)
+    assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("cuda_inputs", [2], indirect=True)

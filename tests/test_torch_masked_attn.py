@@ -3,7 +3,9 @@ plain version, which CPU tensors take) against the JAX package's Pallas
 kernel in interpret mode, and the flash route of ``MultiheadAttention``.
 
 The CUDA kernel is held against the plain version on the GPU by
-``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``.
+``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``; here a plain
+emulation of its arithmetic (tensor-core operand splits, key chunks and
+their merge) is held against the plain version on the CPU.
 """
 
 import jax
@@ -22,7 +24,11 @@ torch.set_num_threads(1)
 from pairnet_torch.flagship import set_flash_attention  # noqa: E402
 from pairnet_torch.models import layers  # noqa: E402
 from pairnet_torch.ops.deform_attn import bf16_ulps_off  # noqa: E402
-from pairnet_torch.ops.masked_attn import masked_flash_attention  # noqa: E402
+from pairnet_torch.ops.masked_attn import (  # noqa: E402
+    chunk_keys,
+    masked_flash_attention,
+    masked_flash_attention_plain,
+)
 from pairnet_torch.utils.from_jax import load_jax_variables  # noqa: E402
 
 C, HEADS = 32, 4
@@ -128,3 +134,94 @@ def test_flash_route_conditions(monkeypatch, Lk, per_head, flash, route):
         want = port(*args, attn_mask=torch.tensor(mask))
     assert calls == ([1] if route == "flash" else [])
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-5, rtol=0)
+
+
+TOL_FLASH = 1e-4  # chip_smoke.py's: max |kernel - plain| / max(1, max |plain|)
+
+
+def _bf16(x):
+    return torch.tensor(x, dtype=torch.float32).to(torch.bfloat16).float().numpy()
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x, rnd):
+    """x = hi + lo, both in the rounding ``rnd``."""
+    hi = rnd(x)
+    return hi, rnd((x - hi).astype(np.float32))
+
+
+def _mm(a, b):  # an f32 accumulator of exact products
+    return np.matmul(a.astype(np.float64), b.astype(np.float64)).astype(np.float32)
+
+
+def _flash_emulation(q, k, v, mask, H, bf16, ck):
+    """The CUDA kernel's arithmetic in numpy on f32 q, k, v (bf16 values
+    when ``bf16``): bf16 -- exact q.k products, the 1/sqrt(D) scale after
+    them, P split into bf16 hi and lo parts for P.V; f32 -- q scaled first,
+    3xTF32 products (a_hi b_hi + a_hi b_lo + a_lo b_hi). Softmax partials
+    per chunk of ``ck`` keys, merged as the merge kernel does. Returns the
+    output and each chunk's merge weight (BH, Lq, chunks)."""
+    BH, Lq, D = q.shape
+    scale = np.float32(1.0 / np.sqrt(D))
+    kt = k.transpose(0, 2, 1)
+    if bf16:
+        s = _mm(q, kt) * scale
+    else:
+        (qh, ql), (kh, kl) = _split(q * scale, _tf32), _split(kt, _tf32)
+        s = _mm(ql, kh) + _mm(qh, kl) + _mm(qh, kh)
+    s = s.reshape(-1, H, Lq, s.shape[-1])
+    s = np.where(mask[:, None], np.float32(-1e9), s).reshape(BH, Lq, -1)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, s.shape[-1], ck):
+        sc, vc = s[..., c0 : c0 + ck], v[:, c0 : c0 + ck]
+        m = sc.max(axis=-1, keepdims=True)
+        p = np.exp(sc - m).astype(np.float32)
+        if bf16:
+            ph, pl = _split(p, _bf16)
+            acc = _mm(pl, vc) + _mm(ph, vc)
+        else:
+            (ph, pl), (vh, vl) = _split(p, _tf32), _split(vc, _tf32)
+            acc = _mm(pl, vh) + _mm(ph, vl) + _mm(ph, vh)
+        ms.append(m)
+        ls.append(p.sum(axis=-1, keepdims=True))
+        accs.append(acc)
+    m = np.max(ms, axis=0)
+    w = [np.exp(mc - m) for mc in ms]
+    l = sum(wc * lc for wc, lc in zip(w, ls))
+    out = sum(wc * ac for wc, ac in zip(w, accs)) / np.maximum(l, 1e-30)
+    return out, np.concatenate(w, axis=-1)
+
+
+@pytest.mark.parametrize("amp", [1.0, 5.0])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_numerics_emulated(dtype, amp):
+    """The CUDA kernel's numerics, emulated on the CPU, against the plain
+    version at the decoder's geometry (H = 8, Lq = 100, D = 32) over 3000
+    keys in the chunks the kernel would take on a 132-SM card: N(0, 1) x amp
+    inputs, a mask about half set, a row masked everywhere (it averages all
+    values), the second key chunk masked in every row (its merge weight is
+    exactly 0 beside a live key). Within chip_smoke.py's TOL_FLASH."""
+    rng = np.random.default_rng(int(amp) + len(dtype))
+    B, H, Lq, Lk, D = 2, 8, 100, 3000, 32
+    ck = chunk_keys(B, Lk, 132)
+    q, k, v = (amp * rng.normal(size=(B * H, n, D)).astype(np.float32) for n in (Lq, Lk, Lk))
+    if dtype == "bfloat16":
+        q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    mask = rng.uniform(size=(B, Lq, Lk)) < 0.5
+    mask[:, :, ck : 2 * ck] = True
+    mask[:, np.arange(Lq), rng.integers(2 * ck, Lk, Lq)] = False
+    mask[:, 7] = True
+    out, w = _flash_emulation(q, k, v, mask, H, dtype == "bfloat16", ck)
+    tq, tk, tv = (torch.tensor(a).to(getattr(torch, dtype)) for a in (q, k, v))
+    ref = masked_flash_attention_plain(tq, tk, tv, torch.tensor(mask), H).numpy()
+    err = float(np.abs(out - ref).max())
+    assert err <= TOL_FLASH * max(1.0, float(np.abs(ref).max())), err
+    live = np.ones(Lq, bool)
+    live[7] = False
+    assert np.all(w[:, live, 1] == 0) and np.all(w[:, 7] == 1)
