@@ -105,43 +105,16 @@ __global__ void quantize_kernel(const T* __restrict__ value, const unsigned* __r
   }
 }
 
-// One tap (h, l, p) of a query, computed once by one lane of the warp and
-// read by every lane of head h from shared memory.
-struct alignas(16) Tap {
-  int4 tok;  // the four corners' tokens in S, clamped into the level's plane
-  float4 w;  // corner weights, 0 for a corner off the plane; int8: times a
-  float a;   // the attention weight (int4 taps)
-};
-
-constexpr int kGatherWarps = 4;  // warps per block, one (b, q) each
-
 // Code k (0..3) of a word of four int8 codes, as an exact f32: the byte
 // xor 0x80 (= code + 128) becomes the low mantissa bits of 2^23.
 __device__ __forceinline__ float code_f32(uint32_t biased, int k) {
   return __int_as_float((int)__byte_perm(biased, 0x4Bu, 0x4550u | k)) - 8388736.f;
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162 h[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  u.x = *reinterpret_cast<uint32_t*>(&h[0]);
-  u.y = *reinterpret_cast<uint32_t*>(&h[1]);
-  u.z = *reinterpret_cast<uint32_t*>(&h[2]);
-  u.w = *reinterpret_cast<uint32_t*>(&h[3]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
 // One warp per (b, q), covering all H heads. Lane i owns the 8-channel
 // groups i, i + 32, ... of the query's H * D channels.
 template <typename OutT, typename WT, bool kInt8Taps>
-__global__ void __launch_bounds__(kGatherWarps * 32)
+__global__ void __launch_bounds__(kTapWarps * 32)
 gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
               const float* __restrict__ locs, const WT* __restrict__ weights,
               OutT* __restrict__ out, int B, int S, int Q, int H, int D, int P, Levels lv) {
@@ -149,7 +122,7 @@ gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales
   const int L = lv.n;
   const int HLP = H * L * P;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long bq = (long long)blockIdx.x * kGatherWarps + warp;
+  const long long bq = (long long)blockIdx.x * kTapWarps + warp;
   if (bq >= (long long)B * Q) return;  // the whole warp; no block barrier follows
   const int b = (int)(bq / Q);
   Tap* taps = taps_all + warp * HLP;
@@ -157,45 +130,8 @@ gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales
   // the geometry of each tap once, the lanes taking taps lane, lane + 32, ...
   const float2* loc = reinterpret_cast<const float2*>(locs) + bq * HLP;
   const WT* wt = weights + bq * HLP;
-  for (int i = lane; i < HLP; i += 32) {
-    const int l = (i / P) % L;
-    const float2 xy = loc[i];
-    const float a = to_f32(wt[i]);
-    const int hl = lv.h[l], wl = lv.w[l];
-    const float x = xy.x * wl - 0.5f;
-    const float y = xy.y * hl - 0.5f;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    Tap tp;
-    tp.a = a;
-    tp.tok = make_int4(0, 0, 0, 0);
-    tp.w = make_float4(0.f, 0.f, 0.f, 0.f);
-    // a tap with no corner in the plane adds 0; this also keeps the int casts in range
-    if (x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f && y0f <= (float)(hl - 1)) {
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const bool xa = x0 >= 0, xb = x0 + 1 < wl;
-      const bool ya = y0 >= 0, yb = y0 + 1 < hl;
-      const int xl = xa ? x0 : 0, xr = xb ? x0 + 1 : wl - 1;
-      const int yt = ya ? y0 : 0, ybt = yb ? y0 + 1 : hl - 1;
-      const int s0 = (int)lv.start[l];
-      tp.tok = make_int4(s0 + yt * wl + xl, s0 + yt * wl + xr, s0 + ybt * wl + xl,
-                         s0 + ybt * wl + xr);
-      float w00 = (1.f - fx) * (1.f - fy), w01 = fx * (1.f - fy);
-      float w10 = (1.f - fx) * fy, w11 = fx * fy;
-      if (kInt8Taps) {  // the TPU int8 kernels' order: (corner weight) * a
-        w00 *= a;
-        w01 *= a;
-        w10 *= a;
-        w11 *= a;
-      }
-      tp.w = make_float4(ya && xa ? w00 : 0.f, ya && xb ? w01 : 0.f, yb && xa ? w10 : 0.f,
-                         yb && xb ? w11 : 0.f);
-    }
-    taps[i] = tp;
-  }
+  for (int i = lane; i < HLP; i += 32)
+    taps[i] = make_tap<kInt8Taps>(loc[i], to_f32(wt[i]), (i / P) % L, lv);
   __syncwarp();
 
   const int G = D / 8;  // 8-channel groups per head
@@ -290,12 +226,12 @@ template <typename OutT, typename WT, bool kInt8Taps>
 int gather_w(const void* codes, const void* scales, const void* locs, const void* weights,
              void* out, int B, int S, int Q, int H, int D, int P, const Levels& lv,
              cudaStream_t st) {
-  const size_t smem = (size_t)kGatherWarps * H * lv.n * P * sizeof(Tap);
+  const size_t smem = (size_t)kTapWarps * H * lv.n * P * sizeof(Tap);
   auto kern = gather_kernel<OutT, WT, kInt8Taps>;
   int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  const long long blocks = ((long long)B * Q + kGatherWarps - 1) / kGatherWarps;
-  kern<<<(unsigned)blocks, kGatherWarps * 32, smem, st>>>(
+  const long long blocks = ((long long)B * Q + kTapWarps - 1) / kTapWarps;
+  kern<<<(unsigned)blocks, kTapWarps * 32, smem, st>>>(
       (const int8_t*)codes, (const float*)scales, (const float*)locs, (const WT*)weights,
       (OutT*)out, B, S, Q, H, D, P, lv);
   return (int)cudaGetLastError();
@@ -307,9 +243,7 @@ int gather(const void* codes, const void* scales, const void* locs, const void* 
            const int* hw, void* stream) {
   Levels lv;
   if (!make_levels(hw, L, &lv)) return (int)cudaErrorInvalidValue;
-  if (H < 1 || P < 1 || D < 8 || D > 64 || D % 8 != 0 ||
-      (long long)kGatherWarps * H * L * P * sizeof(Tap) > 227 * 1024 ||
-      ((long long)B * Q + kGatherWarps - 1) / kGatherWarps > 0x7fffffffLL)
+  if (!tap_kernel_fits(B, Q, H, D, L, P, sizeof(Tap)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   return weights_bf16

@@ -119,6 +119,23 @@ def check_inputs(value, spatial_shapes, locs, weights):
         raise ValueError("value, locations and weights must be on one device")
 
 
+def check_width(D, what):
+    """Raise unless the warp-per-query kernels take the head width ``D``: a
+    multiple of 8 up to 64 (a lane owns 8 channels of a head)."""
+    if D % 8 or not 8 <= D <= 64:
+        raise ValueError(f"{what}: the kernel takes D a multiple of 8 up to 64, not {D}")
+
+
+def aligned(*tensors):
+    """Each tensor contiguous and at a 16-byte aligned address, as the
+    kernels' vector loads and stores need."""
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return tuple(out)
+
+
 def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights,
                    impl: str | None = None, bwd: str = "exact"):
     """Batched MSDA (see module doc). ``impl=None`` means "exact" on CUDA."""

@@ -12,7 +12,8 @@ same gradients) and ``pairnet_tpu/ops/pallas_deform_bwd3.py::_bwd3_kernel``
 
 Returns ``(dvalue, dlocs, dweights)`` in the dtypes of value, locations and
 weights. On CPU tensors :func:`deform_attn_bwd` runs the plain version; on
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel (one warp per query; D a multiple of 8
+up to 64, the upstream grad read as f32 or bf16) or raises.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import torch
 
 from pairnet_torch.ops import _build
 from pairnet_torch.ops.deform_attn import (
+    aligned,
     bf16_ulps_off,
     check_inputs,
+    check_width,
     level_starts,
     ms_deform_attn_plain,
 )
@@ -45,7 +48,7 @@ def _lib():
     lib = _build.load("deform_attn_bwd")
     for name in _FN.values():
         fn = getattr(lib, name)
-        fn.argtypes = [_P] * 8 + [_I] * 7 + [_P, _P]
+        fn.argtypes = [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -132,10 +135,10 @@ def deform_attn_bwd(value, spatial_shapes, locs, weights, g, bwd: str = "exact")
     Q, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
     if g.shape != (B, Q, H * D) or g.device != value.device:
         raise ValueError(f"deform_attn_bwd: upstream grad {tuple(g.shape)} is not {(B, Q, H * D)}")
-    value = value.contiguous()
-    lc = locs.float().contiguous()
-    wt = weights.float().contiguous()
-    gg = g.float().contiguous()
+    check_width(D, "deform_attn_bwd")
+    # the kernel reads g in its own dtype, f32 or bf16
+    gg = g if g.dtype in (torch.float32, torch.bfloat16) else g.float()
+    value, lc, wt, gg = aligned(value, locs.float(), weights.float(), gg)
     scratch = torch.empty((B, S, H, D), device=value.device, dtype=torch.float32)
     dvalue = scratch if value.dtype == torch.float32 else torch.empty_like(value)
     dlocs = torch.empty_like(lc)
@@ -143,8 +146,9 @@ def deform_attn_bwd(value, spatial_shapes, locs, weights, g, bwd: str = "exact")
     hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(value.device):
         status = getattr(_lib(), _FN[inst])(
-            value.data_ptr(), lc.data_ptr(), wt.data_ptr(), gg.data_ptr(), scratch.data_ptr(),
-            dvalue.data_ptr(), dlocs.data_ptr(), dweights.data_ptr(), B, S, Q, H, D, L, P,
+            value.data_ptr(), lc.data_ptr(), wt.data_ptr(), gg.data_ptr(),
+            int(gg.dtype == torch.bfloat16), scratch.data_ptr(), dvalue.data_ptr(),
+            dlocs.data_ptr(), dweights.data_ptr(), B, S, Q, H, D, L, P,
             ctypes.addressof(hw), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(status, f"deform_attn_bwd ({inst})")

@@ -23,7 +23,7 @@ import functools
 import torch
 
 from pairnet_torch.ops import _build
-from pairnet_torch.ops.deform_attn import check_inputs, ms_deform_attn_plain
+from pairnet_torch.ops.deform_attn import aligned, check_inputs, check_width, ms_deform_attn_plain
 from pairnet_torch.ops.deform_attn_bwd import MSDAFunction
 
 _P = ctypes.c_void_p
@@ -42,7 +42,8 @@ def _lib():
 
 
 def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weights):
-    """Exact MSDA: value f32 or bf16, f32 output (B, Q, H * D)."""
+    """Exact MSDA: value f32 or bf16 with D a multiple of 8 up to 64 on
+    CUDA, f32 output (B, Q, H * D)."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
@@ -51,10 +52,9 @@ def deform_attn_exact(value, spatial_shapes, sampling_locations, attention_weigh
     if value.dtype not in _FN:
         raise TypeError(f"deform_attn_exact: value dtype {value.dtype} is not f32 or bf16")
     check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
-    value = value.contiguous()
-    locs = sampling_locations.float().contiguous()
-    weights = attention_weights.float().contiguous()
     B, S, H, D = value.shape
+    check_width(D, "deform_attn_exact")
+    value, locs, weights = aligned(value, sampling_locations.float(), attention_weights.float())
     Q, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
     out = torch.empty((B, Q, H * D), device=value.device, dtype=torch.float32)
     hw = _build.host_shapes(spatial_shapes)

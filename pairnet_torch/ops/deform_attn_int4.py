@@ -30,7 +30,13 @@ import functools
 import torch
 
 from pairnet_torch.ops import _build
-from pairnet_torch.ops.deform_attn import check_inputs, level_starts, ms_deform_attn_plain
+from pairnet_torch.ops.deform_attn import (
+    aligned,
+    check_inputs,
+    check_width,
+    level_starts,
+    ms_deform_attn_plain,
+)
 from pairnet_torch.ops.deform_attn_bwd import MSDAFunction
 
 _P = ctypes.c_void_p
@@ -128,16 +134,11 @@ def launch_gather(fn: str, what: str, out_dtype, codes, scales, spatial_shapes,
     L = len(spatial_shapes)
     if scales.shape != (B, H, L, D) or scales.device != codes.device:
         raise ValueError(f"{what}: scales {tuple(scales.shape)} are not {(B, H, L, D)}")
-    if D % 8 or not 8 <= D <= 64:
-        raise ValueError(f"{what}: the kernel takes D a multiple of 8 up to 64, not {D}")
-    # contiguous, and aligned for the kernel's vector loads and stores
+    check_width(D, what)
     weights = attention_weights
     if weights.dtype != torch.bfloat16:
         weights = weights.float()
-    codes, scales, locs, weights = (t.contiguous() for t in (
-        codes, scales, sampling_locations.float(), weights))
-    codes, scales, locs, weights = (t if t.data_ptr() % 16 == 0 else t.clone()
-                                    for t in (codes, scales, locs, weights))
+    codes, scales, locs, weights = aligned(codes, scales, sampling_locations.float(), weights)
     Q, P = locs.shape[1], locs.shape[4]
     out = torch.empty((B, Q, H * D), dtype=out_dtype, device=codes.device)
     hw = _build.host_shapes(spatial_shapes)

@@ -1,0 +1,232 @@
+"""Time the exact MSDA forward and the MSDA backward kernels of one checkout
+on the inputs of the bf16 training step, and timing-only variants of the
+backward source. Needs a GPU::
+
+    python pairnet_torch/tools/msda_kernels.py [--tree DIR] [--variants kernel,store,...]
+        [--inputs FILE] [--save-outputs FILE | --compare-outputs FILE]
+
+``--tree`` is the root of the checkout whose ``pairnet_torch`` is imported
+and built (default: the one holding this file), so one copy of the script
+times another commit's kernels. The inputs are those that encoder layer 0
+hands to the MSDA backward in one bf16 train step of
+``python -m pairnet_torch.bench --train`` (batch 4, 800x1344; the same
+value, locations and weights reach the forward). With ``--inputs`` they are
+captured and written there on the first run and read back on later runs,
+so that two checkouts run on the same tensors. Cases: the exact forward
+on the bf16 values at batch 4 and on f32 copies of batch 1; the quantized
+gathers (int4, int8 with bf16 and f32 output) on those bf16 values' codes
+at batch 4; the backward's f32 instance at batch 1, its bf16 and
+bf16_grad instances at batch 4.
+
+Variants (of the backward only) are text edits of the tree's ``csrc/deform_attn_bwd.cu``, built
+beside it under ``_build/variants``. Their results are wrong; they are only
+timed, to see what sets the backward's pace:
+  kernel   the source as it is
+  store    every atomic add into dvalue in device memory made a plain store
+           to the same address
+  const    every value load made a constant
+  store+const  both
+
+Every variant is timed twice, in turns (A B B A), 10 calls each time.
+``--save-outputs`` keeps each case's outputs; ``--compare-outputs`` reads
+such a file (another tree's) and reports max |d| and bit-equality per case.
+Prints one JSON line with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import sys
+from pathlib import Path
+
+# (variant -> text edits); an edit applies where its text occurs, and each
+# variant must change the source
+EDITS = {
+    "store": (
+        ("atomicAdd(dvb + tok[c] * row + d, prod);", "dvb[tok[c] * row + d] = prod;"),
+        ("atomicAdd(reinterpret_cast<float4*>(p), ", "*reinterpret_cast<float4*>(p) = ("),
+        ("atomicAdd(reinterpret_cast<float4*>(p + half), ",
+         "*reinterpret_cast<float4*>(p + half) = ("),
+    ),
+    "const": (
+        ("to_f32(vb[tok[c] * row + d])", "1.0f"),
+        ("load_lane8(vb + tok[k] * row, half)", "Lane8<T>{}"),
+    ),
+}
+EDITS["store+const"] = EDITS["store"] + EDITS["const"]
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--variants", default="kernel")
+    ap.add_argument("--inputs", help="captured inputs: written if missing, else read")
+    ap.add_argument("--save-outputs")
+    ap.add_argument("--compare-outputs")
+    return ap.parse_args(argv)
+
+
+def cuda_ms(torch, fn, iters):
+    """Mean ms of ``fn()`` over ``iters`` calls after one warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def capture_inputs(torch, dev):
+    """(shapes, value, locs, weights, g) of encoder layer 0's MSDA backward
+    in one bf16 train step of the training bench."""
+    from pairnet_torch.bench import TRAIN_BATCH, train_batch, train_setup
+    from pairnet_torch.ops import deform_attn_bwd as bwd_mod
+    from pairnet_torch.train.trainer import to_device
+
+    got = {}
+    orig = bwd_mod.deform_attn_bwd
+
+    def capturing(value, shapes, locs, weights, g, bwd="exact"):
+        # the backward runs the layers last to first: the last call is layer 0's
+        got["in"] = (shapes, *(t.detach().clone() for t in (value, locs, weights, g)))
+        return orig(value, shapes, locs, weights, g, bwd)
+
+    capturing.launches = orig.launches
+    model, state, step = train_setup(dev)
+    batch = to_device(train_batch(TRAIN_BATCH), dev)
+    bwd_mod.deform_attn_bwd = capturing
+    try:
+        step(state, batch)
+    finally:
+        bwd_mod.deform_attn_bwd = orig
+    torch.cuda.synchronize()
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return got["in"]
+
+
+def variant_libs(bwd_mod, build_mod, names):
+    """The backward library of each variant, built from the edited source."""
+    orig_csrc = build_mod.CSRC
+    src = (orig_csrc / "deform_attn_bwd.cu").read_text()
+    libs = {}
+    for name in names:
+        text = src
+        if name != "kernel":
+            for old, new in EDITS[name]:
+                text = text.replace(old, new)
+            if text == src:
+                raise SystemExit(f"variant {name!r} changes nothing in {orig_csrc}")
+        d = build_mod.BUILD_DIR / "variants" / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in orig_csrc.glob("*.cuh"):
+            shutil.copy(header, d / header.name)
+        (d / "deform_attn_bwd.cu").write_text(text)
+        build_mod.CSRC = d
+        build_mod._libs.pop("deform_attn_bwd", None)
+        bwd_mod._lib.cache_clear()
+        try:
+            libs[name] = bwd_mod._lib()
+        finally:
+            build_mod.CSRC = orig_csrc
+            build_mod._libs.pop("deform_attn_bwd", None)
+            bwd_mod._lib.cache_clear()
+    return libs
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import pairnet_torch
+    from pairnet_torch.bench import gpu_name_and_power_limit
+    from pairnet_torch.ops import _build
+    from pairnet_torch.ops import deform_attn_bwd as bwd_mod
+    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops.deform_attn_int4 import int4_gather, int4_quantize
+    from pairnet_torch.ops.deform_attn_int8 import int8_gather, int8_quantize
+
+    if Path(pairnet_torch.__file__).resolve().parents[1] != tree:
+        raise SystemExit(f"imported {pairnet_torch.__file__}, not the tree {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("msda_kernels: needs a GPU")
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if args.inputs and Path(args.inputs).exists():
+        saved = torch.load(args.inputs, map_location=dev)
+        shapes, value, locs, w, g = (saved["shapes"], saved["value"], saved["locs"],
+                                     saved["weights"], saved["g"])
+    else:
+        shapes, value, locs, w, g = capture_inputs(torch, dev)
+        if args.inputs:
+            Path(args.inputs).parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"shapes": shapes, "value": value, "locs": locs, "weights": w, "g": g},
+                       args.inputs)
+    v1 = value[:1].float()
+    codes4, scales4 = int4_quantize(value, shapes)
+    codes8, scales8 = int8_quantize(value, shapes)
+    fwd_cases = {
+        "exact bf16 b4": lambda: deform_attn_exact(value, shapes, locs, w),
+        "exact f32 b1": lambda: deform_attn_exact(v1, shapes, locs[:1], w[:1]),
+        "int4 gather b4": lambda: int4_gather(codes4, scales4, shapes, locs, w),
+        "int8 gather bf16 b4": lambda: int8_gather(codes8, scales8, shapes, locs, w),
+        "int8 gather f32 b4": lambda: int8_gather(codes8, scales8, shapes, locs, w,
+                                                  torch.float32),
+    }
+    bwd_cases = {"bwd f32 b1": (v1, locs[:1], w[:1], g[:1], "exact"),
+                 "bwd bf16 b4": (value, locs, w, g, "exact"),
+                 "bwd bf16_grad b4": (value, locs, w, g, "bf16_grad")}
+
+    names = args.variants.split(",")
+    orig_lib = bwd_mod._lib
+    libs = variant_libs(bwd_mod, _build, names)
+    current = [libs[names[0]]]
+    bwd_mod._lib = lambda: current[0]
+
+    def run_bwd(case):
+        return bwd_mod.deform_attn_bwd(case[0], shapes, case[1], case[2], case[3], case[4])
+
+    times = {n: {} for n in names}
+    for r in range(2):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            current[0] = libs[name]
+            if name == "kernel":
+                for key, fn in fwd_cases.items():
+                    times[name].setdefault(key, []).append(cuda_ms(torch, fn, 10))
+            for key, case in bwd_cases.items():
+                times[name].setdefault(key, []).append(
+                    cuda_ms(torch, lambda: run_bwd(case), 10))
+
+    result = {"gpu": gpu_name_and_power_limit(), "device": torch.cuda.get_device_name(0),
+              "tree": str(tree), "shapes": shapes, "ms": times,
+              "mean_ms": {n: {k: sum(t) / len(t) for k, t in c.items()} for n, c in times.items()}}
+    if "kernel" in libs and (args.save_outputs or args.compare_outputs):
+        current[0] = libs["kernel"]
+        outs = {key: (fn(),) for key, fn in fwd_cases.items()}
+        outs.update({key: run_bwd(case) for key, case in bwd_cases.items()})
+        torch.cuda.synchronize()
+        if args.save_outputs:
+            torch.save({k: [t.cpu() for t in v] for k, v in outs.items()}, args.save_outputs)
+        if args.compare_outputs:
+            ref = torch.load(args.compare_outputs)
+            result["compare"] = {
+                key: {"bit_equal": all(torch.equal(a.cpu(), b) for a, b in zip(outs[key], ref[key])),
+                      "max_abs_diff": [float((a.cpu().float() - b.float()).abs().max())
+                                       for a, b in zip(outs[key], ref[key])]}
+                for key in outs}
+    bwd_mod._lib = orig_lib
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,7 @@ On a GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 import numpy as np
 import pytest
 
-from test_torch_helpers import msda_inputs
+from test_torch_helpers import msda_border_inputs, msda_hotspot_inputs, msda_inputs
 
 torch = pytest.importorskip("torch")
 
@@ -53,10 +53,20 @@ def cuda_inputs(request):
         torch.tensor(w, device=dev)
 
 
-@pytest.mark.parametrize("cuda_inputs", [0], indirect=True)
+def _on_card(*arrays):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return tuple(torch.tensor(a, device="cuda") for a in arrays)
+
+
+@pytest.mark.parametrize("H, D", [(4, 8), (4, 32), (8, 8), (8, 32)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_exact_kernel_matches_plain(cuda_inputs, dtype):
-    shapes, value, locs, w = cuda_inputs
+def test_exact_kernel_matches_plain(H, D, dtype):
+    """The warp-per-query exact forward at H in {4, 8} and D in {8, 32},
+    wild offsets: within 1e-5 of the plain version (f32 sums of ~50 taps of
+    N(0, 1) values, the same products in another association)."""
+    shapes, value, locs, w = msda_inputs(seed=0, wild=True, H=H, D=D)
+    value, locs, w = _on_card(value, locs, w)
     value = value.to(getattr(torch, dtype))
     n = deform_attn_exact.launches
     out = deform_attn_exact(value, shapes, locs, w)
@@ -183,25 +193,101 @@ def test_masked_attn_kernel_edge_cases(Lk, Lq, D, dtype):
     assert float((out - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
 
 
-@pytest.mark.parametrize("cuda_inputs", [2], indirect=True)
-@pytest.mark.parametrize("D", [32, 8])
-@pytest.mark.parametrize("inst", ["f32", "bf16", "bf16_grad"])
-def test_bwd_kernel_matches_plain(cuda_inputs, D, inst):
-    """Each backward instance against its plain version, at the flagship's
-    head width D = 32 and the tiny model's D = 8."""
-    shapes, value, locs, w = cuda_inputs
-    value = value[..., :D].to(torch.float32 if inst == "f32" else torch.bfloat16)
+def _bwd_case(shapes, value, locs, w, inst, seed=3):
+    """(kernel, plain) backward of instance ``inst`` on CUDA copies of the
+    inputs, with a seeded N(0, 1) upstream grad; checks the launch count."""
+    value, locs, w = _on_card(value, locs, w)
+    value = value.to(torch.float32 if inst == "f32" else torch.bfloat16)
     B, Q, H = locs.shape[:3]
-    g = torch.randn((B, Q, H * D), generator=torch.Generator("cuda").manual_seed(3),
-                    device="cuda")
+    g = torch.randn((B, Q, H * value.shape[3]),
+                    generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
     bwd = "bf16_grad" if inst == "bf16_grad" else "exact"
     n = deform_attn_bwd.launches[inst]
     out = deform_attn_bwd(value, shapes, locs, w, g, bwd)
     torch.cuda.synchronize()
     assert deform_attn_bwd.launches[inst] == n + 1
-    ref = ms_deform_attn_bwd_plain(value, shapes, locs, w, g, bf16_grad=bwd == "bf16_grad")
+    return out, ms_deform_attn_bwd_plain(value, shapes, locs, w, g, bf16_grad=bwd == "bf16_grad")
+
+
+INSTANCES = ["f32", "bf16", "bf16_grad"]
+
+
+@pytest.mark.parametrize("H, D", [(4, 8), (4, 32), (8, 8), (8, 32)])
+@pytest.mark.parametrize("inst", INSTANCES)
+def test_bwd_kernel_matches_plain(H, D, inst):
+    """Each backward instance against its plain version at H in {4, 8} and
+    D in {8, 32} (the tiny model's and the flagship's head widths), wild
+    offsets: f32 outputs within BWD_TOLERANCE x max|plain|, a bf16 dvalue
+    within 1 bf16 ulp."""
+    shapes, value, locs, w = msda_inputs(seed=2, wild=True, H=H, D=D)
+    out, ref = _bwd_case(shapes, value, locs, w, inst)
     err, failures = bwd_mismatch(out, ref)
     assert not failures, (err, failures)
+
+
+@pytest.mark.parametrize("inst", INSTANCES)
+def test_bwd_kernel_hot_spot(inst):
+    """Every tap of 700 queries in one pixel cell per level: the four
+    corner rows of each level and head take ~2800 contended vector atomics
+    each."""
+    out, ref = _bwd_case(*msda_hotspot_inputs(seed=7), inst)
+    err, failures = bwd_mismatch(out, ref)
+    assert not failures, (err, failures)
+
+
+@pytest.mark.parametrize("inst", INSTANCES)
+def test_bwd_kernel_border(inst):
+    """Taps at x0 = -1, x0 = w - 1, on integer pixels and wholly off the
+    plane: the kernel matches the plain version, and a tap with no corner
+    in the plane has dlocs and dweights exactly 0."""
+    shapes, value, locs, w, off = msda_border_inputs(seed=8)
+    assert 0 < off.sum() < off.size
+    out, ref = _bwd_case(shapes, value, locs, w, inst)
+    err, failures = bwd_mismatch(out, ref)
+    assert not failures, (err, failures)
+    off = torch.tensor(off, device="cuda")
+    assert not out[1][off].any() and not out[2][off].any()
+
+
+@pytest.mark.parametrize("inst", INSTANCES)
+def test_bwd_kernel_all_off_plane(inst):
+    """Every tap wholly off its plane: dvalue, dlocs and dweights exactly 0."""
+    shapes, value, locs, w, off = msda_border_inputs(seed=9, all_off=True)
+    assert off.all()
+    out, _ = _bwd_case(shapes, value, locs, w, inst)
+    assert not any(t.any() for t in out)
+
+
+@pytest.mark.parametrize("inst", INSTANCES)
+def test_bwd_kernel_decoder_queries(inst):
+    """Q != S, as in a decoder: 37 queries (a partial block of warps), 3
+    points per level (a partial group of taps in flight), wild offsets;
+    the exact forward on the same inputs too."""
+    shapes, value, locs, w = msda_inputs(seed=10, wild=True, Q=37, P=3)
+    out, ref = _bwd_case(shapes, value, locs, w, inst)
+    err, failures = bwd_mismatch(out, ref)
+    assert not failures, (err, failures)
+    v, lc, wt = _on_card(value, locs, w)
+    v = v.to(torch.float32 if inst == "f32" else torch.bfloat16)
+    np.testing.assert_allclose(deform_attn_exact(v, shapes, lc, wt).cpu().numpy(),
+                               ms_deform_attn_plain(v, shapes, lc, wt).cpu().numpy(),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("D", [12, 72])
+def test_exact_and_bwd_raise_for_unsupported_width(D):
+    """A head width that is not a multiple of 8 up to 64 raises before any
+    launch, in the forward and the backward wrapper."""
+    shapes, value, locs, w = msda_inputs(seed=11, D=D, Q=8)
+    value, locs, w = _on_card(value, locs, w)
+    g = torch.zeros((*locs.shape[:2], value.shape[2] * D), device="cuda")
+    n_fwd, n_bwd = deform_attn_exact.launches, sum(deform_attn_bwd.launches.values())
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        deform_attn_exact(value, shapes, locs, w)
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        deform_attn_bwd(value, shapes, locs, w, g)
+    assert deform_attn_exact.launches == n_fwd
+    assert sum(deform_attn_bwd.launches.values()) == n_bwd
 
 
 @pytest.mark.parametrize("cuda_inputs", [3], indirect=True)

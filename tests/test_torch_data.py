@@ -188,3 +188,37 @@ def test_loader_batches_equal_jax(target_size):
             np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
         n += 1
     assert n == len(tl) == 2
+
+
+def test_jax_loader_threads_find_the_native_library_loaded(monkeypatch):
+    """The JAX package's native library loads lazily and not thread-safely:
+    a loader thread that finds it marked tried but not yet loaded takes the
+    PIL resize, a gray level off the native one, and its image parts from
+    the port's (0.07 between the two packages' value planes in the CLI
+    parity test). ``jax_dataset`` loads the library first; with the load
+    slowed down so that the JAX loader's threads would overlap it, every
+    batch still equals the port's bit for bit."""
+    import ctypes
+    import time
+
+    from pairnet_tpu import native as j_native
+
+    load = ctypes.CDLL
+
+    def slow_load(*args, **kwargs):
+        time.sleep(0.3)
+        return load(*args, **kwargs)
+
+    monkeypatch.setattr(j_native, "_TRIED", False)
+    monkeypatch.setattr(j_native, "_LIB", None)
+    monkeypatch.setattr(ctypes, "CDLL", slow_load)
+    jcfg, tcfg = j_load_config(TINY), load_config(TINY)
+    for cfg in (jcfg, tcfg):  # the CLI parity test's size: every image is resized
+        cfg.set_path("data.pipeline.target_size", (256, 512))
+    jds = jax_dataset(synthetic_root(TINY_SPLIT), "test")
+    jl = JLoader(jds, j_build_pipeline_cfg(jcfg, train=False), 3, train=False, seed=0,
+                 num_workers=3)
+    tl = Loader(build_dataset(tcfg, "test"), build_pipeline_cfg(tcfg, train=False), 3)
+    for jb, tb in zip(jl, tl, strict=True):
+        for k in jb:
+            np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)

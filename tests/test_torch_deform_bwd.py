@@ -6,7 +6,12 @@ package's Pallas backward kernels, run in interpret mode on the CPU.
 * its ``bf16_grad`` variant against ``_ms_deform_attn_bwd3_impl`` on
   bf16-representable values and upstream grads;
 * the autograd Functions of the exact and the int4 forward, whose CPU
-  backward is the plain version: the same gradients, in the input dtypes.
+  backward is the plain version: the same gradients, in the input dtypes;
+* the plain backward against bwd2 again on the inputs of the GPU tests'
+  edge cases (``tests/test_torch_cuda_kernels.py``): every tap in one pixel
+  cell (hot spot), and taps on the plane's border and wholly off it, whose
+  gradients are exactly 0;
+* the wrappers' shared argument helpers.
 
 Tolerances are those of the JAX package's own tests
 (``tests/test_deform_bwd2.py``, ``tests/test_deform_bwd3.py``): 2e-5 x
@@ -21,11 +26,12 @@ from jax.experimental.pallas import tpu as pltpu
 
 from pairnet_tpu.ops.pallas_deform_bwd2 import _ms_deform_attn_bwd2_impl
 from pairnet_tpu.ops.pallas_deform_bwd3 import _ms_deform_attn_bwd3_impl
-from test_torch_helpers import msda_inputs
+from test_torch_helpers import msda_border_inputs, msda_hotspot_inputs, msda_inputs
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from pairnet_torch.ops.deform_attn import aligned, check_width  # noqa: E402
 from pairnet_torch.ops.deform_attn_bwd import ms_deform_attn_bwd_plain  # noqa: E402
 from pairnet_torch.ops.deform_attn_exact import ms_deform_attn_exact  # noqa: E402
 from pairnet_torch.ops.deform_attn_int4 import ms_deform_attn_int4  # noqa: E402
@@ -34,6 +40,7 @@ NAMES = ("dvalue", "dlocs", "dweights")
 TOL = {"dvalue": 2e-5, "dlocs": 2e-5, "dweights": 2e-5}
 TOL_BF16_GRAD = {"dvalue": 1e-2, "dlocs": 2e-5, "dweights": 2e-5}
 Q = 200  # two query tiles of the Pallas kernels, the second padded
+Q_EDGE = 64  # the edge cases: one padded tile
 
 
 def _bf16(a):
@@ -114,3 +121,65 @@ def test_int4_function_backward_matches_jax_bwd3(bwd3_case):
     assert out.dtype == torch.bfloat16 and out.grad_fn is not None
     assert [t.dtype for t in grads] == [torch.bfloat16, torch.float32, torch.float32]
     _check(grads, ref, TOL_BF16_GRAD)
+
+
+@pytest.fixture(scope="module", params=["hot_spot", "border"])
+def edge_case(request):
+    """(inputs, off-plane tap mask, JAX bwd2 gradients) on the GPU tests'
+    edge inputs, f32 values."""
+    if request.param == "hot_spot":
+        shapes, value, locs, w = msda_hotspot_inputs(seed=4, Q=Q_EDGE)
+        off = np.zeros(w.shape, bool)
+    else:
+        shapes, value, locs, w, off = msda_border_inputs(seed=5, Q=Q_EDGE)
+    g = np.random.default_rng(14).normal(size=(*locs.shape[:2], 4 * 32)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _ms_deform_attn_bwd2_impl(jnp.asarray(value), shapes, jnp.asarray(locs),
+                                        jnp.asarray(w), jnp.asarray(g))
+    return (shapes, value, locs, w, g), off, [np.asarray(r) for r in ref]
+
+
+def test_plain_bwd_matches_jax_bwd2_on_edge_inputs(edge_case):
+    """The plain backward, which the GPU tests hold the kernel against, is
+    bwd2's on the hot-spot and border inputs; a tap with no corner in the
+    plane gets dlocs and dweights exactly 0 from both."""
+    (shapes, value, locs, w, g), off, ref = edge_case
+    got = ms_deform_attn_bwd_plain(torch.tensor(value), shapes, torch.tensor(locs),
+                                   torch.tensor(w), torch.tensor(g))
+    _check(got, ref, TOL)
+    for r, k in ((ref[1], got[1]), (ref[2], got[2])):
+        assert not np.asarray(r)[off].any() and not k.numpy()[off].any()
+
+
+def test_border_inputs_cover_the_edges():
+    """The border inputs hold taps with x0 = -1, x0 = w - 1, on integer
+    pixels and wholly off the plane, and in-plane taps beside them."""
+    shapes, _, locs, _, off = msda_border_inputs(seed=5, Q=Q_EDGE)
+    assert 0.1 < off.mean() < 0.9
+    for lvl, (h, w) in enumerate(shapes):
+        px = locs[..., lvl, :, 0] * w - 0.5
+        x0 = np.floor(px)
+        assert (x0 == -1).any() and (x0 == w - 1).any() and (px == np.round(px)).any()
+    _, _, _, _, all_off = msda_border_inputs(seed=9, all_off=True)
+    assert all_off.all()
+
+
+@pytest.mark.parametrize("D", [8, 16, 24, 32, 64])
+def test_check_width_takes_multiples_of_8_up_to_64(D):
+    check_width(D, "kernel")
+
+
+@pytest.mark.parametrize("D", [0, 4, 12, 72, 128])
+def test_check_width_raises_beyond(D):
+    with pytest.raises(ValueError, match="multiple of 8 up to 64"):
+        check_width(D, "kernel")
+
+
+def test_aligned_makes_views_contiguous_and_aligned():
+    base = torch.arange(40, dtype=torch.float32)
+    view = base[1:33].reshape(4, 8)
+    strided = base[:32].reshape(8, 4).t()
+    for t, out in zip((view, strided), aligned(view, strided)):
+        assert out.is_contiguous() and out.data_ptr() % 16 == 0 and torch.equal(out, t)
+    fresh = torch.zeros(16)
+    assert aligned(fresh)[0] is fresh

@@ -12,9 +12,17 @@ TINY_SPLIT = {"num_images": 8, "num_test": 3, "seed": 1}  # tiny_synthetic's fix
 
 def jax_dataset(port_dataset_root, split):
     """The JAX package's PSGDataset on the port's synthetic fixture (the same
-    files for both packages; the fixtures' equality is tested on its own)."""
+    files for both packages; the fixtures' equality is tested on its own).
+
+    It first loads the JAX package's native preprocessing library in the
+    calling thread. That library loads lazily and marks itself tried before
+    it is loaded, so a loader thread that comes in between takes the PIL
+    resize, whose rounding is a gray level off the native resize's, and that
+    image parts from the port's."""
+    from pairnet_tpu import native
     from pairnet_tpu.data.psg import PSGDataset
 
+    assert native.available(), "the JAX package's native preprocessing library did not load"
     return PSGDataset("psg.json", data_root=port_dataset_root, split=split)
 
 
@@ -32,6 +40,60 @@ def msda_inputs(seed=0, wild=False, B=2, H=4, D=32, Q=700, P=4, shapes=MSDA_SHAP
     locs = rng.uniform(lo, hi, size=(B, Q, H, L, P, 2)).astype(np.float32)
     w = rng.uniform(size=(B, Q, H, L, P)).astype(np.float32)
     return shapes, value, locs, w
+
+
+def msda_hotspot_inputs(seed=0, B=2, H=4, D=32, Q=700, P=4, shapes=MSDA_SHAPES):
+    """MSDA inputs whose taps all fall into one pixel cell of each level
+    (the middle one), at positions jittered inside it: every query's
+    corners land on the same four tokens per level and head, the most
+    contended case of the backward's scatter into dvalue."""
+    shapes, value, _, w = msda_inputs(seed, False, B, H, D, Q, P, shapes)
+    rng = np.random.default_rng(seed + 100)
+    L = len(shapes)
+    locs = np.empty((B, Q, H, L, P, 2), np.float32)
+    for lvl, (h, wd) in enumerate(shapes):
+        for axis, n in ((0, wd), (1, h)):
+            px = n // 2 + rng.uniform(0.05, 0.95, size=(B, Q, H, P))
+            locs[:, :, :, lvl, :, axis] = (px + 0.5) / n
+    return shapes, value, locs, w
+
+
+BORDER_SHAPES = ((16, 32), (8, 16), (4, 8))  # powers of two: the pixel positions are exact
+
+
+def border_pixels(n):
+    """Pixel coordinates (p * n - 0.5) on and beyond the border of an axis
+    of n pixels: x0 = -1, x0 = n - 1, on integer pixels (0, n - 1, and -1,
+    whose in-plane corner has weight 0), and wholly off the plane (x0 = -2,
+    x0 = n)."""
+    return np.array([-0.5, n - 0.75, 0.0, n - 1.0, -1.0, -1.5, n + 0.25], np.float32)
+
+
+def msda_border_inputs(seed=0, B=2, H=4, D=32, Q=96, P=4, shapes=BORDER_SHAPES, all_off=False):
+    """MSDA inputs whose tap coordinates are drawn per axis from
+    :func:`border_pixels` and uniform pixels in [-1, n]; with ``all_off``
+    every tap lies wholly off its plane. Returns (shapes, value, locs,
+    weights, off): ``off`` (B, Q, H, L, P) marks the taps with no corner in
+    the plane."""
+    shapes, value, _, w = msda_inputs(seed, False, B, H, D, Q, P, shapes)
+    rng = np.random.default_rng(seed + 200)
+    L = len(shapes)
+    locs = np.empty((B, Q, H, L, P, 2), np.float32)
+    off = np.zeros((B, Q, H, L, P), bool)
+    for lvl, (h, wd) in enumerate(shapes):
+        for axis, n in ((0, wd), (1, h)):
+            special = border_pixels(n)
+            if all_off:
+                special = special[special < -1.0] if axis else special[special >= n]
+                px = rng.choice(special, size=(B, Q, H, P))
+            else:
+                px = np.where(rng.uniform(size=(B, Q, H, P)) < 0.7,
+                              rng.choice(special, size=(B, Q, H, P)),
+                              rng.uniform(-1.0, n, size=(B, Q, H, P)).astype(np.float32))
+            locs[:, :, :, lvl, :, axis] = (px + 0.5) / n
+            x0 = np.floor(locs[:, :, :, lvl, :, axis] * n - 0.5)
+            off[:, :, :, lvl] |= (x0 < -1) | (x0 > n - 1)
+    return shapes, value, locs, w, off
 
 
 def to_numpy(tree):
