@@ -19,7 +19,10 @@ result line then):
      the main paths gave it (first encoder layer: batch 8 bf16 serving for
      the int4 kernels, batch 1 f32 for the exact one), with the tolerances
      of phase 2; timings with CUDA events: serving img/s, each kernel and
-     its plain version on those inputs, and each kernel's bound.
+     its plain version on those inputs (a kernel's ``ms`` as the host
+     issues its calls, ``device_ms`` with them queued behind a spin of the
+     card), and each kernel's bound. One quantize call launches each of its
+     two passes once and no fill (torch.profiler).
   6. train full-width Pair-Net R-50 (800x1344, batch 4, bf16 compute over
      f32 masters, the geometry of ``python -m pairnet_torch.bench --train``):
      a warm-up and 3 steps on the exact backward, then 1 step on the
@@ -50,7 +53,7 @@ result line then):
      length, with phase 2's tolerances; their timings, SDPA's for the flash
      kernel (whose bound takes its operations at the tensor-core rate of
      its products, PR 3's f32-rate bound logged beside), and scoring
-     images/s.
+     images/s; each int8 quantize call's two passes, as in phase 5.
 Then one JSON line of kernels, one of serving, one of training, one of
 evaluation, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}.
@@ -118,19 +121,6 @@ def check(ok, what):
     """Fail the run unless ``ok`` (not an ``assert``: it holds under -O too)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def cuda_ms(fn, iters):
-    """Mean milliseconds of ``fn()`` over ``iters`` calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def nbytes(*tensors):
@@ -246,6 +236,7 @@ def main():
         masked_flash_attention,
         masked_flash_attention_plain,
     )
+    from pairnet_torch.tools.msda_kernels import cuda_ms, kernel_split
     from pairnet_torch.train import trainer as trainer_mod
 
     smi = gpu_name_and_power_limit()
@@ -446,7 +437,7 @@ def main():
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     # --- (5) kernels on the main paths' inputs; timings ---
-    serve_ms = cuda_ms(lambda: serve(model, images), 3)
+    serve_ms = cuda_ms(torch, lambda: serve(model, images), 3)
     img_per_s = B * 1000.0 / serve_ms
     log(f"[5] serving: {serve_ms:.2f} ms per batch of {B} = {img_per_s:.2f} img/s")
 
@@ -464,9 +455,10 @@ def main():
         torch.cuda.synchronize()
         d = compare(out, ref)
         del ref
-        ms = cuda_ms(kernel_fn, 10)
-        plain_ms = cuda_ms(plain_fn, 2)
-        library_ms = None if library_fn is None else cuda_ms(library_fn, 10)
+        ms = cuda_ms(torch, kernel_fn, 10)
+        device_ms = cuda_ms(torch, kernel_fn, 10, spin=True)
+        plain_ms = cuda_ms(torch, plain_fn, 2)
+        library_ms = None if library_fn is None else cuda_ms(torch, library_fn, 10)
         out_t = out if isinstance(out, tuple) else (out,)
         t_bytes = nbytes(*in_t, *out_t) / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak_flops * 1e3
@@ -474,15 +466,30 @@ def main():
         if launches is not None:
             kernels.append({
                 "name": name, "route": "cuda", **where, "launches": launches, "max_abs_err": d,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
                 "bound_by": bound_by, "library_ms": library_ms,
                 "bound_terms_ms": {"bytes": t_bytes, "operations": t_ops},
             })
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[{phase}] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms{lib}, bound {max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
+            f"{plain_ms:.3f} ms{lib}, behind a spin {device_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
             f"{t_bytes:.4f}, ops {t_ops:.4f})")
         return out
+
+    def quantize_passes(fn, name, phase=5):
+        """The device kernels of one quantize call (profiler): each of its
+        two passes once, no fill; kept in the kernel's entry."""
+        split = kernel_split(torch, fn, 10)
+        passes = {p: e for k, e in split.items() for p in ("absmax_kernel", "quantize_kernel")
+                  if f"::{p}<" in k}
+        check(len(split) == len(passes) == 2
+              and all(e["launches_per_call"] == 1 for e in passes.values()),
+              f"{name}: kernels {split}")
+        kernels[-1]["kernels_per_call"] = split
+        log(f"[{phase}] {name}: each call launches each of its two passes once and no fill: "
+            + ", ".join(f"{p} {e['ms']:.4f} ms" for p, e in passes.items()))
 
     L = len(SHAPES)
 
@@ -508,6 +515,7 @@ def main():
         f"bf16 serving batch {B}, encoder layer 0, max|d| of codes and scales",
         source="pairnet_torch/csrc/deform_attn_quant.cu",
         replaces="pairnet_tpu/ops/pallas_deform_attn_v16.py:54")
+    quantize_passes(lambda: int4_quantize(v, SHAPES), "int4_quantize")
     record("int4_gather", serving_launches["int4_gather"],
            lambda: int4_gather(codes, scales, SHAPES, lc, wt),
            lambda: int4_gather_plain(codes, scales, SHAPES, lc, wt), compare_gather,
@@ -843,6 +851,7 @@ def main():
             lambda k, p: compare_quantize(k, p, "int8_quantize"), (v,), 5 * v.numel(),
             f"{what}, max|d| of codes and scales", phase=11, source=quant_src,
             replaces="pairnet_tpu/ops/pallas_deform_attn_v12.py:54")
+        quantize_passes(lambda: int8_quantize(v, SHAPES), f"int8_quantize ({inst} values)", 11)
         if inst == "bf16":
             record("int8_gather (bf16 out)", c["int8_gather"].get("bf16", 0),
                    lambda: int8_gather(codes, scales, SHAPES, lc, wt),
@@ -890,12 +899,12 @@ def main():
         entry = dict(per_lk[lks[0]], name=f"masked_attn ({dname})",
                      launches=c["masked_attn"],
                      max_abs_err=max(e["max_abs_err"] for e in per_lk.values()))
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
             entry[key] = sum(share[Lk] * e[key] for Lk, e in per_lk.items())
         entry["bound_by"] = ("operations" if all(e["bound_by"] == "operations"
                                                  for e in per_lk.values()) else "bytes")
         entry["per_lk"] = {str(Lk): {key: e[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_terms_ms",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_terms_ms",
             "bound_ms_f32_rate")} for Lk, e in per_lk.items()}
         for key in ("bound_terms_ms", "bound_ms_f32_rate"):
             entry.pop(key)

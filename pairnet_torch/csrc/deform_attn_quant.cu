@@ -35,6 +35,25 @@
 // (least traffic; its corner reads, 32-byte sectors of a head's codes, come
 // mostly from L2, which holds the codes) and writes bf16 or f32.
 //
+// Quantize design: two launches over the same tiles of kTileRows tokens of
+// one (image, level), which a block finds from blockIdx once (the level from
+// a per-level table of first tiles): no per-element index arithmetic, level
+// search or 64-bit division. A thread owns 8 consecutive channels (one
+// 16-byte load of bf16, two of f32) of a token row, all of one head (D is a
+// multiple of 8), HD / 8 threads a row, and keeps kRowsInFlight rows' loads
+// in flight before using any.
+//   1. absmax: per-channel maxima of the tile in registers, then over the
+//      block's rows in shared memory, one atomicMax per channel into a
+//      workspace, and an arrival count per (b, level). The last block of a
+//      (b, level) to arrive turns the maxima into the scales, writes them,
+//      and resets its workspace slots and count to zero (atomicExch), so the
+//      wrapper's workspace, zeroed once when allocated, needs no fill per call.
+//   2. quantize: the thread's 8 scales read once (two 16-byte loads), 8 IEEE
+//      divides per row, 8 codes packed into one 8-byte store.
+// A max is exact and independent of order, so codes and scales are bit-equal
+// to the plain version. fmaxf drops a NaN from the max, where the plain
+// version's amax propagates it; a NaN value's code is -bound.
+//
 // Gather design: one warp per (b, q), covering every head. The tap geometry
 // (coordinates, the four corners' tokens, in-plane tests, corner weights)
 // is computed once per (h, l, p) by one lane and shared through shared
@@ -52,55 +71,169 @@
 
 namespace {
 
-// Chunks of `chunk` tokens, numbered level by level: level l owns chunks
-// [first[l], first[l + 1]).
-struct Chunks {
-  int chunk;
+// Quantize: tiles of kTileRows tokens, numbered level by level: level l
+// owns tiles [first[l], first[l + 1]) of each image, the last one partial.
+struct Tiles {
   int first[kMaxLevels + 1];
 };
 
-template <typename T>
-__global__ void absmax_kernel(const T* __restrict__ value, unsigned* __restrict__ amax,
-                              int S, int HD, Levels lv, Chunks ck) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= HD) return;
-  const int b = blockIdx.z;
-  const int y = blockIdx.y;
-  int l = 0;
-  while (l + 1 < lv.n && y >= ck.first[l + 1]) ++l;
-  const long long lo = lv.start[l] + (long long)(y - ck.first[l]) * ck.chunk;
-  long long hi = lo + ck.chunk;
-  const long long end = lv.start[l] + (long long)lv.h[l] * lv.w[l];
-  if (hi > end) hi = end;
-  const T* v = value + (long long)b * S * HD + c;
-  float m = 0.f;
-  for (long long s = lo; s < hi; ++s) m = fmaxf(m, fabsf(to_f32(v[s * HD])));
-  // non-negative floats order like their bit patterns
-  atomicMax(amax + ((long long)b * lv.n + l) * HD + c, __float_as_uint(m));
+constexpr int kTileRows = 256;
+constexpr int kQuantThreads = 256;
+constexpr int kRowsInFlight = 4;  // a thread's rows loaded before any is used
+
+// The tile of a quantize block: blockIdx.x counts tiles, blockIdx.y images.
+struct TileRows {
+  int l;         // level
+  int row0;      // first token of the tile within its level
+  int rows;      // tokens in the tile
+  long long s0;  // first token of the tile in (b, S)
+};
+
+__device__ __forceinline__ TileRows tile_rows(const Levels& lv, const Tiles& tl, int S) {
+  TileRows t;
+  t.l = 0;
+  while (t.l + 1 < lv.n && (int)blockIdx.x >= tl.first[t.l + 1]) ++t.l;
+  const int n = lv.h[t.l] * lv.w[t.l];
+  t.row0 = ((int)blockIdx.x - tl.first[t.l]) * kTileRows;
+  t.rows = min(kTileRows, n - t.row0);
+  t.s0 = (long long)blockIdx.y * S + lv.start[t.l] + t.row0;
+  return t;
 }
 
+// Eight consecutive channels of a token row as loaded: one 16-byte load of
+// bf16, two of f32; x[c] is channel c as an f32.
+template <typename T>
+struct Row8;
+
+template <>
+struct Row8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float operator[](int c) const {
+    const uint32_t w = c < 2 ? u.x : c < 4 ? u.y : c < 6 ? u.z : u.w;
+    return __uint_as_float(c & 1 ? w & 0xffff0000u : w << 16);
+  }
+};
+
+template <>
+struct Row8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float operator[](int c) const {
+    const float4& h = c < 4 ? a : b;
+    const int k = c & 3;
+    return k == 0 ? h.x : k == 1 ? h.y : k == 2 ? h.z : h.w;
+  }
+};
+
+// Pass 1: the tile's per-channel absmax (in registers over a thread's rows,
+// then over the block's rows in shared memory), one atomicMax per channel
+// into amax[b, l, :], then an arrival count per (b, l). The last block of a
+// (b, l) to arrive writes its scales and leaves its amax slots and its count
+// at zero for the next call. tpr threads share a token row, each owning the
+// 8-channel groups g, g + tpr, ...; blockDim.x = rows_per_pass * tpr.
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+absmax_kernel(const T* __restrict__ value, unsigned* __restrict__ amax,
+              unsigned* __restrict__ arrivals, float* __restrict__ scales, int S, int H, int D,
+              Levels lv, Tiles tl, int tpr, float bound) {
+  extern __shared__ float red[];  // rows_per_pass x HD
+  __shared__ bool last;
+  const int HD = H * D, G = HD / 8;
+  const int R = blockDim.x / tpr;
+  const int r = threadIdx.x / tpr, gi = threadIdx.x - r * tpr;
+  const TileRows t = tile_rows(lv, tl, S);
+  const T* base = value + t.s0 * HD;
+  for (int g = gi; g < G; g += tpr) {
+    float m[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) m[c] = 0.f;
+    for (int i = r; i < t.rows; i += kRowsInFlight * R) {
+      Row8<T> x[kRowsInFlight];
+#pragma unroll
+      for (int k = 0; k < kRowsInFlight; ++k)
+        if (i + k * R < t.rows) x[k].load(base + (long long)(i + k * R) * HD + g * 8);
+#pragma unroll
+      for (int k = 0; k < kRowsInFlight; ++k)
+        if (i + k * R < t.rows) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) m[c] = fmaxf(m[c], fabsf(x[k][c]));
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) red[r * HD + g * 8 + c] = m[c];
+  }
+  __syncthreads();
+  unsigned* am = amax + ((long long)blockIdx.y * lv.n + t.l) * HD;
+  for (int c = threadIdx.x; c < HD; c += blockDim.x) {
+    float m = red[c];
+    for (int rr = 1; rr < R; ++rr) m = fmaxf(m, red[rr * HD + c]);
+    // non-negative floats order like their bit patterns
+    atomicMax(am + c, __float_as_uint(m));
+  }
+  __threadfence();
+  __syncthreads();
+  unsigned* arrived = arrivals + blockIdx.y * lv.n + t.l;
+  if (threadIdx.x == 0)
+    last = atomicAdd(arrived, 1u) == (unsigned)(tl.first[t.l + 1] - tl.first[t.l] - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int c = threadIdx.x; c < HD; c += blockDim.x) {
+    const float m = __uint_as_float(atomicExch(am + c, 0u));  // read, and reset
+    const int h = c / D, d = c - h * D;
+    scales[(((long long)blockIdx.y * H + h) * lv.n + t.l) * D + d] =
+        fmaxf(__fdiv_rn(m, bound), 1e-20f);
+  }
+  if (threadIdx.x == 0) *arrived = 0u;
+}
+
+// Pass 2: codes of the tile, 8 channels a thread with their 8 scales in
+// registers, the rows in flight loaded before any is used, 8 codes a store.
 template <typename T, int kBound>
-__global__ void quantize_kernel(const T* __restrict__ value, const unsigned* __restrict__ amax,
-                                int8_t* __restrict__ codes, float* __restrict__ scales,
-                                int B, int S, int H, int D, Levels lv) {
-  const int HD = H * D;
-  const long long total = (long long)B * S * HD;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % HD);
-    const long long bs = i / HD;
-    const long long s = bs % S;
-    const int b = (int)(bs / S);
-    int l = 0;
-    while (l + 1 < lv.n && s >= lv.start[l + 1]) ++l;
-    const float am = __uint_as_float(amax[((long long)b * lv.n + l) * HD + c]);
-    const float scale = fmaxf(__fdiv_rn(am, (float)kBound), 1e-20f);
-    float q = rintf(__fdiv_rn(to_f32(value[i]), scale));
-    q = fminf(fmaxf(q, (float)-kBound), (float)kBound);
-    codes[i] = (int8_t)q;
-    if (s == lv.start[l]) {
-      const int h = c / D, d = c % D;
-      scales[(((long long)b * H + h) * lv.n + l) * D + d] = scale;
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_kernel(const T* __restrict__ value, const float* __restrict__ scales,
+                int8_t* __restrict__ codes, int S, int H, int D, Levels lv, Tiles tl, int tpr) {
+  const int HD = H * D, G = HD / 8;
+  const int R = blockDim.x / tpr;
+  const int r = threadIdx.x / tpr, gi = threadIdx.x - r * tpr;
+  const TileRows t = tile_rows(lv, tl, S);
+  const T* base = value + t.s0 * HD;
+  int8_t* out = codes + t.s0 * HD;
+  for (int g = gi; g < G; g += tpr) {
+    // the group's 8 channels lie in one head, so its scales are contiguous
+    const int h = g * 8 / D, d = g * 8 - h * D;
+    const float4* sp = reinterpret_cast<const float4*>(
+        scales + (((long long)blockIdx.y * H + h) * lv.n + t.l) * D + d);
+    const float4 s0 = __ldg(sp), s1 = __ldg(sp + 1);
+    const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    // the rows in the reverse of pass 1's order: those it read last are
+    // the likeliest to be still in L2
+    const int step = kRowsInFlight * R;
+    const int last = t.rows > r ? r + (t.rows - 1 - r) / step * step : -1;
+    for (int i = last; i >= r; i -= step) {
+      Row8<T> x[kRowsInFlight];
+#pragma unroll
+      for (int k = 0; k < kRowsInFlight; ++k)
+        if (i + k * R < t.rows) x[k].load(base + (long long)(i + k * R) * HD + g * 8);
+#pragma unroll
+      for (int k = 0; k < kRowsInFlight; ++k) {
+        if (i + k * R >= t.rows) continue;
+        uint32_t word[2] = {0u, 0u};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float q = rintf(__fdiv_rn(x[k][c], sc[c]));
+          q = fminf(fmaxf(q, (float)-kBound), (float)kBound);
+          word[c >> 2] |= ((uint32_t)(int)q & 0xffu) << (8 * (c & 3));
+        }
+        *reinterpret_cast<uint2*>(out + (long long)(i + k * R) * HD + g * 8) =
+            make_uint2(word[0], word[1]);
+      }
     }
   }
 }
@@ -197,28 +330,36 @@ gather_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales
 }
 
 template <typename T, int kBound>
-int quantize(const void* value, void* amax, void* codes, void* scales, int B, int S, int H,
+int quantize(const void* value, void* workspace, void* codes, void* scales, int B, int S, int H,
              int D, int L, const int* hw, void* stream) {
   Levels lv;
   if (!make_levels(hw, L, &lv)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * D;
-  Chunks ck;
-  ck.chunk = 64;
-  ck.first[0] = 0;
+  if (H < 1 || D < 1 || D % 8) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  Tiles tl;
+  tl.first[0] = 0;
   for (int l = 0; l < L; ++l) {
     const long long n = (long long)lv.h[l] * lv.w[l];
-    ck.first[l + 1] = ck.first[l] + (int)((n + ck.chunk - 1) / ck.chunk);
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    tl.first[l + 1] = tl.first[l] + (int)((n + kTileRows - 1) / kTileRows);
   }
-  if (ck.first[L] > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int tx = HD < 256 ? HD : 256;
-  const dim3 grid((HD + tx - 1) / tx, ck.first[L], B);
-  absmax_kernel<T><<<grid, tx, 0, st>>>((const T*)value, (unsigned*)amax, S, HD, lv, ck);
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int G = HD / 8;
+  const int tpr = G < kQuantThreads ? G : kQuantThreads;  // threads per token row
+  const int rows_per_pass = kQuantThreads / tpr;
+  const int threads = rows_per_pass * tpr;
+  const size_t smem = (size_t)rows_per_pass * HD * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid(tl.first[L], B);
+  unsigned* amax = (unsigned*)workspace;  // B * L * HD slots, then B * L arrival counts
+  absmax_kernel<T><<<grid, threads, smem, st>>>((const T*)value, amax,
+                                                amax + (long long)B * L * HD, (float*)scales,
+                                                S, H, D, lv, tl, tpr, (float)kBound);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  const int threads = 256;
-  quantize_kernel<T, kBound><<<grid_for((long long)B * S * HD, threads), threads, 0, st>>>(
-      (const T*)value, (const unsigned*)amax, (int8_t*)codes, (float*)scales, B, S, H, D, lv);
+  quantize_kernel<T, kBound><<<grid, threads, 0, st>>>(
+      (const T*)value, (const float*)scales, (int8_t*)codes, S, H, D, lv, tl, tpr);
   return (int)cudaGetLastError();
 }
 
@@ -255,12 +396,14 @@ int gather(const void* codes, const void* scales, const void* locs, const void* 
 
 }  // namespace
 
-// value: (B, S, H, D) bf16 or f32; amax: zeroed u32 scratch of B * L * H * D
-// entries; codes int8 (B, S, H, D); scales f32 (B, H, L, D).
-#define QUANTIZE_ENTRY(name, T, bound)                                                     \
-  extern "C" int name(const void* value, void* amax, void* codes, void* scales, int B,    \
-                      int S, int H, int D, int L, const int* hw, void* stream) {           \
-    return quantize<T, bound>(value, amax, codes, scales, B, S, H, D, L, hw, stream);     \
+// value: (B, S, H, D) bf16 or f32, D a multiple of 8; workspace: u32,
+// B * L * (H * D + 1) entries, zero before the call and left zero after it
+// (one per device and stream: calls that share one must not overlap); codes
+// int8 (B, S, H, D); scales f32 (B, H, L, D). Every pointer 16-byte aligned.
+#define QUANTIZE_ENTRY(name, T, bound)                                                       \
+  extern "C" int name(const void* value, void* workspace, void* codes, void* scales, int B, \
+                      int S, int H, int D, int L, const int* hw, void* stream) {             \
+    return quantize<T, bound>(value, workspace, codes, scales, B, S, H, D, L, hw, stream);  \
   }
 QUANTIZE_ENTRY(int4_quantize_bf16, __nv_bfloat16, 7)
 QUANTIZE_ENTRY(int8_quantize_bf16, __nv_bfloat16, 127)

@@ -93,10 +93,24 @@ def int4_gather_plain(codes, scales, spatial_shapes, sampling_locations, attenti
     return out.to(torch.bfloat16)
 
 
+_workspaces: dict = {}  # (device index, stream) -> the quantize's u32 workspace
+
+
+def quantize_workspace(device, stream: int, n: int):
+    """The quantize's workspace on ``device`` for calls on ``stream``: at
+    least ``n`` int32 entries, zeroed when allocated (once, or when a call
+    needs more) and left zero by every call, so a call launches no fill."""
+    ws = _workspaces.get((device.index, stream))
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.int32, device=device)
+        _workspaces[(device.index, stream)] = ws
+    return ws
+
+
 def launch_quantize(fn: str, what: str, value, spatial_shapes):
     """Launch the quantize entry ``fn`` of the library on a CUDA value of
     the layout (B, S, H, D) and of the dtype that ``fn`` names (``_bf16``
-    or ``_f32``): (codes int8, scales f32 (B, H, L, D))."""
+    or ``_f32``), D a multiple of 8: (codes int8, scales f32 (B, H, L, D))."""
     if value.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {value.device}")
     want = torch.bfloat16 if fn.endswith("_bf16") else torch.float32
@@ -106,15 +120,18 @@ def launch_quantize(fn: str, what: str, value, spatial_shapes):
     L = len(spatial_shapes)
     if S != level_starts(spatial_shapes)[-1]:
         raise ValueError(f"{what}: S={S} does not match levels {spatial_shapes}")
-    value = value.contiguous()
-    amax = torch.zeros((B, L, H, D), dtype=torch.int32, device=value.device)
+    if D % 8:
+        raise ValueError(f"{what}: the kernel takes D a multiple of 8, not {D}")
+    (value,) = aligned(value)
     codes = torch.empty((B, S, H, D), dtype=torch.int8, device=value.device)
     scales = torch.empty((B, H, L, D), dtype=torch.float32, device=value.device)
     hw = _build.host_shapes(spatial_shapes)
     with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = quantize_workspace(value.device, stream, B * L * (H * D + 1))
         status = getattr(_lib(), fn)(
-            value.data_ptr(), amax.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            B, S, H, D, L, ctypes.addressof(hw), torch.cuda.current_stream().cuda_stream,
+            value.data_ptr(), ws.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            B, S, H, D, L, ctypes.addressof(hw), stream,
         )
     _build.check(status, what)
     return codes, scales

@@ -1,6 +1,7 @@
-"""Time the exact MSDA forward and the MSDA backward kernels of one checkout
-on the inputs of the bf16 training step, and timing-only variants of the
-backward source. Needs a GPU::
+"""Time the MSDA kernels of one checkout (the exact forward, the quantized
+gathers, the int4/int8 quantize and the backward) on the inputs of the bf16
+training step, and timing-only variants of the backward source. Needs a
+GPU::
 
     python pairnet_torch/tools/msda_kernels.py [--tree DIR] [--variants kernel,store,...]
         [--inputs FILE] [--save-outputs FILE | --compare-outputs FILE]
@@ -15,7 +16,9 @@ captured and written there on the first run and read back on later runs,
 so that two checkouts run on the same tensors. Cases: the exact forward
 on the bf16 values at batch 4 and on f32 copies of batch 1; the quantized
 gathers (int4, int8 with bf16 and f32 output) on those bf16 values' codes
-at batch 4; the backward's f32 instance at batch 1, its bf16 and
+at batch 4; the three quantize instances (int4 and int8 on the bf16
+values, int8 on f32 copies) at batch 4 and on the values repeated to batch
+8, the serving batch; the backward's f32 instance at batch 1, its bf16 and
 bf16_grad instances at batch 4.
 
 Variants (of the backward only) are text edits of the tree's ``csrc/deform_attn_bwd.cu``, built
@@ -27,8 +30,13 @@ timed, to see what sets the backward's pace:
   const    every value load made a constant
   store+const  both
 
-Every variant is timed twice, in turns (A B B A), 10 calls each time.
-``--save-outputs`` keeps each case's outputs; ``--compare-outputs`` reads
+Every variant is timed twice, in turns (A B B A), 10 calls each time, by
+CUDA events: ``ms`` as the host issues the calls, and ``device_ms`` with
+the calls queued behind a spin of the card, so a kernel shorter than its
+wrapper's host work is timed at the card's pace. Each quantize case is
+also profiled (``torch.profiler``, 10 calls after 2 warm-up calls): every
+kernel it launches, fills included, with its device ms per launch and its
+launches per call. ``--save-outputs`` keeps each case's outputs; ``--compare-outputs`` reads
 such a file (another tree's) and reports max |d| and bit-equality per case.
 Prints one JSON line with the card's name and power limit.
 """
@@ -68,17 +76,48 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def cuda_ms(torch, fn, iters):
-    """Mean ms of ``fn()`` over ``iters`` calls after one warm-up (CUDA events)."""
+SPIN_CYCLES = 10_000_000  # ~5 ms of an H100's clock: the host queues 10 calls meanwhile
+
+
+def cuda_ms(torch, fn, iters, spin=False):
+    """Mean ms of ``fn()`` over ``iters`` calls after one warm-up (CUDA
+    events). With ``spin`` the calls queue behind a spin of the card, so
+    the time is the card's, not the host's issuing of the calls."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_split(torch, fn, calls):
+    """Each kernel (fills and copies included) that ``calls`` calls of
+    ``fn`` launch, by ``torch.profiler`` after 2 profiled warm-up calls,
+    the card synchronised after each call: its mean device ms per launch
+    and its launches per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    warmup = 2
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1)) as prof:
+        for _ in range(warmup + calls):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            split[e.key[:80]] = {"ms": us / 1e3 / e.count, "launches_per_call": e.count / calls}
+    return split
 
 
 def capture_inputs(torch, dev):
@@ -172,6 +211,7 @@ def main(argv=None):
             torch.save({"shapes": shapes, "value": value, "locs": locs, "weights": w, "g": g},
                        args.inputs)
     v1 = value[:1].float()
+    v8 = value.repeat(2, 1, 1, 1)  # the serving batch
     codes4, scales4 = int4_quantize(value, shapes)
     codes8, scales8 = int8_quantize(value, shapes)
     fwd_cases = {
@@ -182,6 +222,13 @@ def main(argv=None):
         "int8 gather f32 b4": lambda: int8_gather(codes8, scales8, shapes, locs, w,
                                                   torch.float32),
     }
+    quant_cases = {}
+    for b, vb in ((4, value), (8, v8)):
+        quant_cases[f"int4 quantize bf16 b{b}"] = lambda vb=vb: int4_quantize(vb, shapes)
+        quant_cases[f"int8 quantize bf16 b{b}"] = lambda vb=vb: int8_quantize(vb, shapes)
+        quant_cases[f"int8 quantize f32 b{b}"] = (
+            lambda vf=vb.float(): int8_quantize(vf, shapes))
+    fwd_cases.update(quant_cases)
     bwd_cases = {"bwd f32 b1": (v1, locs[:1], w[:1], g[:1], "exact"),
                  "bwd bf16 b4": (value, locs, w, g, "exact"),
                  "bwd bf16_grad b4": (value, locs, w, g, "bf16_grad")}
@@ -195,23 +242,31 @@ def main(argv=None):
     def run_bwd(case):
         return bwd_mod.deform_attn_bwd(case[0], shapes, case[1], case[2], case[3], case[4])
 
-    times = {n: {} for n in names}
+    bwd_fns = {key: (lambda case=case: run_bwd(case)) for key, case in bwd_cases.items()}
+    times = {t: {n: {} for n in names} for t in ("ms", "device_ms")}
     for r in range(2):
         for name in (names if r % 2 == 0 else names[::-1]):
             current[0] = libs[name]
-            if name == "kernel":
-                for key, fn in fwd_cases.items():
-                    times[name].setdefault(key, []).append(cuda_ms(torch, fn, 10))
-            for key, case in bwd_cases.items():
-                times[name].setdefault(key, []).append(
-                    cuda_ms(torch, lambda: run_bwd(case), 10))
+            cases = {**fwd_cases, **bwd_fns} if name == "kernel" else bwd_fns
+            for key, fn in cases.items():
+                for t, spin in (("ms", False), ("device_ms", True)):
+                    times[t][name].setdefault(key, []).append(cuda_ms(torch, fn, 10, spin))
+
+    def means(by_name):
+        return {n: {k: sum(t) / len(t) for k, t in c.items()} for n, c in by_name.items()}
 
     result = {"gpu": gpu_name_and_power_limit(), "device": torch.cuda.get_device_name(0),
-              "tree": str(tree), "shapes": shapes, "ms": times,
-              "mean_ms": {n: {k: sum(t) / len(t) for k, t in c.items()} for n, c in times.items()}}
-    if "kernel" in libs and (args.save_outputs or args.compare_outputs):
+              "tree": str(tree), "shapes": shapes, **times,
+              "mean_ms": means(times["ms"]), "mean_device_ms": means(times["device_ms"])}
+    if "kernel" in libs:
         current[0] = libs["kernel"]
-        outs = {key: (fn(),) for key, fn in fwd_cases.items()}
+        result["quantize_kernels"] = {key: kernel_split(torch, fn, 10)
+                                      for key, fn in quant_cases.items()}
+    if "kernel" in libs and (args.save_outputs or args.compare_outputs):
+        outs = {}
+        for key, fn in fwd_cases.items():
+            out = fn()
+            outs[key] = out if isinstance(out, tuple) else (out,)
         outs.update({key: run_bwd(case) for key, case in bwd_cases.items()})
         torch.cuda.synchronize()
         if args.save_outputs:

@@ -7,7 +7,13 @@ On a GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 import numpy as np
 import pytest
 
-from test_torch_helpers import msda_border_inputs, msda_hotspot_inputs, msda_inputs
+from test_torch_helpers import (
+    QUANT_KINDS,
+    msda_border_inputs,
+    msda_hotspot_inputs,
+    msda_inputs,
+    quantize_edge_values,
+)
 
 torch = pytest.importorskip("torch")
 
@@ -28,6 +34,7 @@ from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
     int4_quantize,
     int4_quantize_plain,
 )
+from pairnet_torch.ops.deform_attn_int4 import quantize_plain  # noqa: E402
 from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
     int8_gather,
     int8_gather_plain,
@@ -103,6 +110,100 @@ def test_int8_kernels_match_plain(cuda_inputs, dtype):
     out = int8_gather(codes, scales, shapes, locs, w, torch.float32)
     ref = int8_gather_plain(codes, scales, shapes, locs, w, torch.float32)
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+# quantize instance -> (wrapper, value dtype, code bound, its launch count)
+QUANTIZE = {
+    "int4 bf16": (int4_quantize, torch.bfloat16, 7, lambda: int4_quantize.launches),
+    "int8 bf16": (int8_quantize, torch.bfloat16, 127, lambda: int8_quantize.launches["bf16"]),
+    "int8 f32": (int8_quantize, torch.float32, 127, lambda: int8_quantize.launches["f32"]),
+}
+LEVELS_800x1344 = ((25, 42), (50, 84), (100, 168))  # 1050, 4200, 16800 tokens
+
+
+def _quantize_case(inst, value, shapes):
+    """The kernel's codes and scales on ``value`` (numpy or a CUDA tensor)
+    in the instance's dtype, checked bit-equal to the plain version on the
+    same tensor, with one launch counted."""
+    quantize, dtype, bound, launches = QUANTIZE[inst]
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    v = torch.as_tensor(value, device="cuda").to(dtype)
+    n = launches()
+    codes, scales = quantize(v, shapes)
+    torch.cuda.synchronize()
+    assert launches() == n + 1
+    ref_codes, ref_scales = quantize_plain(v, shapes, bound)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    assert torch.equal(codes, ref_codes) and torch.equal(scales, ref_scales)
+    return codes, scales
+
+
+@pytest.mark.parametrize("H, D", [(4, 8), (4, 32), (8, 8), (8, 32)])
+@pytest.mark.parametrize("inst", QUANTIZE)
+def test_quantize_kernel_heads_and_widths(H, D, inst):
+    """Each quantize instance at H in {4, 8} and D in {8, 32}, on levels of
+    600, 150 and 40 tokens (each ending in a partial tile): bit-equal to the
+    plain version."""
+    shapes, value, _, _ = msda_inputs(seed=20, H=H, D=D, Q=1)
+    _quantize_case(inst, value, shapes)
+
+
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+@pytest.mark.parametrize("inst", QUANTIZE)
+def test_quantize_kernel_edge_values(inst, kind):
+    """bf16-rounded values, channels zero over a level (-0.0 included:
+    scale 1e-20, codes 0), exact half-step ties (to even) beside +-absmax
+    (+-bound): bit-equal to the plain version."""
+    bound = QUANTIZE[inst][2]
+    value = quantize_edge_values(kind, bound, seed=22)
+    codes, _ = _quantize_case(inst, value, ((20, 30), (10, 15), (5, 8)))
+    if kind == "ties":
+        assert int(codes.abs().max()) == bound
+
+
+@pytest.mark.parametrize("inst", QUANTIZE)
+def test_quantize_kernel_many_tiles(inst):
+    """The 800x1344 encoder levels at batch 2 (levels of 5, 17 and 66
+    tiles, each with a partial last tile): bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    S = sum(h * w for h, w in LEVELS_800x1344)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    value = torch.randn((2, S, 8, 32), generator=g, device="cuda")
+    _quantize_case(inst, value, LEVELS_800x1344)
+
+
+@pytest.mark.parametrize("inst", QUANTIZE)
+def test_quantize_kernel_workspace_is_clean_for_the_next_call(inst):
+    """Calls in a row on one stream share the workspace: a call at the same
+    shape on smaller values (a maximum left over would show in its scales),
+    then other levels, batches and widths, then the first call again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    small = ((20, 30), (10, 15), (5, 8))
+    calls = [(small, 2, 8, 32, 4.0), (small, 2, 8, 32, 0.5), (LEVELS_800x1344, 3, 8, 32, 1.0),
+             (((7, 9), (3, 3)), 1, 4, 8, 2.0), (small, 2, 8, 32, 4.0)]
+    for shapes, B, H, D, amp in calls:
+        S = sum(h * w for h, w in shapes)
+        value = amp * torch.randn((B, S, H, D), generator=g, device="cuda")
+        _quantize_case(inst, value, shapes)
+
+
+@pytest.mark.parametrize("H", [3, 4])
+@pytest.mark.parametrize("inst", QUANTIZE)
+def test_quantize_kernel_raises_for_width_not_multiple_of_8(inst, H):
+    """D = 6 (H * D 18 or 24): a thread's 8 channels would span two heads
+    and H * D = 18 cannot take 16-byte loads, so the wrapper raises before
+    any launch."""
+    quantize, dtype, _, launches = QUANTIZE[inst]
+    shapes, value, _, _ = msda_inputs(seed=25, H=H, D=6, Q=1)
+    (v,) = _on_card(value)
+    n = launches()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quantize(v.to(dtype), shapes)
+    assert launches() == n
 
 
 @pytest.mark.parametrize("Lk", [2048, 4200])

@@ -12,9 +12,10 @@ import pytest
 from jax.experimental.pallas import tpu as pltpu
 
 import pairnet_tpu.ops.pallas_deform_attn_v6 as v6
+import pairnet_tpu.ops.pallas_deform_attn_v10 as v10
 import pairnet_tpu.ops.pallas_deform_attn_v16 as v16
 from pairnet_tpu.ops.deform_attn import ms_deform_attn as jax_msda
-from test_torch_helpers import msda_inputs
+from test_torch_helpers import MSDA_SHAPES, QUANT_KINDS, msda_inputs, quantize_edge_values
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -28,6 +29,7 @@ from pairnet_torch.ops.deform_attn_int4 import (  # noqa: E402
 )
 from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
     int8_gather_plain,
+    int8_quantize,
     int8_quantize_plain,
 )
 
@@ -71,7 +73,9 @@ def test_plain_matches_v6_interpret():
 
 def _v16_codes(shapes, value):
     """int4 codes of the TPU quantize kernel (``_quantize_pack_int4`` in
-    interpret mode), unpacked to (B, S, H, D), with its (B, H, L, D) scales."""
+    interpret mode), unpacked to (B, S, H, D), with its (B, H, L, D) scales.
+    The plane keeps the value's dtype and the scales come from its f32
+    copy, as in ``_ms_deform_attn_v16_impl``."""
     B, S, H, D = value.shape
     blk = v16.BLK
     vT = jnp.asarray(value).transpose(0, 2, 3, 1).reshape(B * H, D, S)
@@ -80,7 +84,8 @@ def _v16_codes(shapes, value):
         n = h * w
         pad = -(-(n + blk) // blk) * blk
         vl = vT[:, :, start : start + n]
-        scales.append(jnp.maximum(jnp.max(jnp.abs(vl), axis=2, keepdims=True) / 7.0, 1e-20))
+        scales.append(jnp.maximum(
+            jnp.max(jnp.abs(vl.astype(jnp.float32)), axis=2, keepdims=True) / 7.0, 1e-20))
         planes.append(jnp.pad(vl, ((0, 0), (0, 0), (0, pad - n))))
         offs.append(pos)
         pads.append(pad)
@@ -116,6 +121,57 @@ def test_int4_plain_matches_v16_interpret():
     out = ms_deform_attn_int4(torch.tensor(value), shapes, torch.tensor(locs), torch.tensor(w))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2e-2, rtol=1e-3)
+
+
+def _rows_codes(shapes, value):
+    """int8 codes and scales of the JAX package's row quantize
+    (``v10._quantize_rows``, bit-identical to v12's fused kernel), level by
+    level, as (B, S, H, D) codes and (B, H, L, D) scales."""
+    B, S, H, D = value.shape
+    codes, scales, start = [], [], 0
+    for h, w in shapes:
+        vl = value[:, start : start + h * w].transpose(0, 2, 3, 1).reshape(B * H, D, h * w)
+        q, scale = v10._quantize_rows(vl)
+        codes.append(np.asarray(q).reshape(B, H, D, h * w).transpose(0, 3, 1, 2))
+        scales.append(np.asarray(scale).reshape(B, H, D))
+        start += h * w
+    return np.concatenate(codes, axis=1), np.stack(scales, axis=2)
+
+
+@pytest.mark.parametrize("kind", QUANT_KINDS)
+@pytest.mark.parametrize("bits", ["int4", "int8"])
+def test_quantize_edge_values_match_jax(bits, kind):
+    """The edge semantics the CUDA quantize is held to, on the plain
+    version: bf16 values as serving hands them over, a channel zero over a
+    level (-0.0 included: scale 1e-20, codes 0), and exact half-step ties
+    beside +-absmax (round half to even, +-bound). Codes and scales
+    bit-equal to the JAX package's: the int4 TPU kernel in interpret mode,
+    the int8 row quantize."""
+    bound = 7 if bits == "int4" else 127
+    value = quantize_edge_values(kind, bound, seed=21)
+    bf16 = kind == "bf16"
+    vt = torch.tensor(value).to(torch.bfloat16 if bf16 else torch.float32)
+    jv = jnp.asarray(value).astype(jnp.bfloat16 if bf16 else jnp.float32)
+    quantize, reference = {"int4": (int4_quantize, _v16_codes),
+                           "int8": (int8_quantize, _rows_codes)}[bits]
+    codes, scales = quantize(vt, MSDA_SHAPES)
+    ref_codes, ref_scales = reference(MSDA_SHAPES, jv)
+    np.testing.assert_array_equal(codes.numpy().astype(np.int32), ref_codes)
+    np.testing.assert_array_equal(scales.numpy(), ref_scales)
+    sizes = [h * w for h, w in MSDA_SHAPES]
+    per_token = np.repeat(scales.numpy().transpose(0, 2, 1, 3), sizes, axis=1)  # (B, S, H, D)
+    if kind == "zero_channel":
+        zero = 0
+        for lvl, (a, b) in enumerate(zip(np.cumsum([0] + sizes), np.cumsum(sizes))):
+            z = np.all(value[:, a:b] == 0, axis=1)  # (B, H, D)
+            assert np.all(scales.numpy()[:, :, lvl][z] == np.float32(1e-20))
+            assert not codes[:, a:b].numpy().transpose(0, 2, 3, 1)[z].any()
+            zero += int(z.sum())
+        assert zero == 3  # (h 1, d 3) of level 1 in both images, (h 0, d 0) of level 2 in one
+    if kind == "ties":
+        q = value / per_token
+        assert np.all(np.abs(q) <= bound) and np.all((np.abs(q) == bound) | (q % 1 == 0.5))
+        np.testing.assert_array_equal(codes.numpy(), np.rint(q))
 
 
 @pytest.mark.parametrize("impl", [None, "exact", "int4", "int8", "plain"])

@@ -58,6 +58,48 @@ def msda_hotspot_inputs(seed=0, B=2, H=4, D=32, Q=700, P=4, shapes=MSDA_SHAPES):
     return shapes, value, locs, w
 
 
+QUANT_KINDS = ("bf16", "zero_channel", "ties")
+
+
+def quantize_edge_values(kind, bound, seed=0, B=2, H=4, D=32, shapes=MSDA_SHAPES):
+    """f32 values (B, S, H, D) for the quantize's edge semantics:
+
+    * ``bf16``: N(0, 1) rounded to bf16 (to be handed over as bf16);
+    * ``zero_channel``: N(0, 1) with channel (h 1, d 3) zero over level 1
+      (half of it -0.0) and channel (h 0, d 0) zero over level 2 in image 0;
+    * ``ties``: per (b, h, level, d) a power-of-two scale s, one token at
+      +-bound * s (the absmax, so the scale is exactly s) and every other
+      token at an exact half step (k + 0.5) * s, |k + 0.5| < bound, which
+      rounds half to even. Every value has at most 8 significant bits.
+    """
+    import torch
+
+    rng = np.random.default_rng(seed)
+    S = sum(h * w for h, w in shapes)
+    value = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    starts = np.cumsum([0] + [h * w for h, w in shapes])
+    if kind == "bf16":
+        return torch.tensor(value).to(torch.bfloat16).float().numpy()
+    if kind == "zero_channel":
+        lvl1 = slice(starts[1], starts[2])
+        value[:, lvl1, 1, 3] = 0.0
+        value[:, starts[1]:starts[1] + (starts[2] - starts[1]) // 2, 1, 3] = -0.0
+        value[0, starts[2]:starts[3], 0, 0] = 0.0
+        return value
+    assert kind == "ties", kind
+    for lvl in range(len(shapes)):
+        n = starts[lvl + 1] - starts[lvl]
+        s = 2.0 ** rng.integers(-6, 4, size=(B, 1, H, D))
+        k = rng.integers(-bound, bound, size=(B, n, H, D))
+        v = (k + 0.5) * s
+        at = rng.integers(0, n, size=(B, H, D))  # the absmax token of each channel
+        sign = rng.choice([-1.0, 1.0], size=(B, H, D))
+        bi, hi, di = np.indices((B, H, D))
+        v[bi, at, hi, di] = sign * bound * s[:, 0]
+        value[:, starts[lvl]:starts[lvl + 1]] = v
+    return value
+
+
 BORDER_SHAPES = ((16, 32), (8, 16), (4, 8))  # powers of two: the pixel positions are exact
 
 

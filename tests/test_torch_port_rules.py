@@ -144,6 +144,22 @@ def test_cuda_tensor_without_a_card_raises(monkeypatch):
             call()
 
 
+def test_quantize_workspace_is_zeroed_once_per_stream(monkeypatch):
+    """The quantize's workspace is allocated zeroed once per (device,
+    stream) and reused while it is large enough, so a call launches no
+    fill; a call that needs more gets a larger zeroed one."""
+    monkeypatch.setattr(deform_attn_int4, "_workspaces", {})
+    cpu = torch.device("cpu")
+    ws = deform_attn_int4.quantize_workspace(cpu, 7, 100)
+    assert ws.dtype == torch.int32 and ws.numel() == 100 and not ws.any()
+    assert deform_attn_int4.quantize_workspace(cpu, 7, 60) is ws
+    other = deform_attn_int4.quantize_workspace(cpu, 8, 60)
+    assert other is not ws and other.numel() == 60
+    grown = deform_attn_int4.quantize_workspace(cpu, 7, 101)
+    assert grown is not ws and grown.numel() == 101 and not grown.any()
+    assert deform_attn_int4.quantize_workspace(cpu, 7, 100) is grown
+
+
 @pytest.mark.parametrize("lib", [deform_attn_int4._lib, masked_attn._lib],
                          ids=["deform_attn_quant", "masked_attn"])
 def test_failed_build_raises_from_the_new_wrappers(monkeypatch, lib):
