@@ -26,15 +26,17 @@ result line then):
   6. train full-width Pair-Net R-50 (800x1344, batch 4, bf16 compute over
      f32 masters, the geometry of ``python -m pairnet_torch.bench --train``):
      a warm-up and 3 steps on the exact backward, then 1 step on the
-     bf16_grad backward; counts 6 forward and 6 backward MSDA launches per
-     step and no call of a plain version; checks finite losses, a positive
+     bf16_grad backward; counts 6 forward and 6 backward MSDA launches and
+     2 Hungarian launches per step, no host sync of the solver and no call
+     of a plain version; checks finite losses, a positive
      grad norm, a head weight moved, the frozen stem unchanged, the Seesaw
      counts grown and a gradient in every encoder layer's sampling offsets.
   7. one f32 train step (batch 1, TF32 off) through the MSDA kernels
      against the same step through the plain MSDA, which replays the
      kernel run's attention masks, pair picks and Hungarian targets (the
      entries it would have set otherwise are counted): losses and every
-     MSDA parameter gradient.
+     MSDA parameter gradient; the plain Hungarian loop on the kernel run's
+     own costs gives its assignments (differences counted, must be 0).
   8. the training kernels on the inputs the training paths handed them
      (first encoder layer), with phase 2's tolerances; their timings.
   9. score: ``pairnet_torch.tools.test.main`` on the flagship config
@@ -54,9 +56,25 @@ result line then):
      kernel (whose bound takes its operations at the tensor-core rate of
      its products, PR 3's f32-rate bound logged beside), and scoring
      images/s; each int8 quantize call's two passes, as in phase 5.
+ 12. the Hungarian kernel against the plain loop (equal row2col and
+     col2row): on the costs of phase 6's two matchers, 4x100x100 integer
+     costs (ties), padded rows and columns, n < m and n > m, a single NaN
+     entry; a whole NaN row terminates (logged, not compared). Times of the
+     kernel, the wrapper and the plain loop on the card, the byte bound,
+     the search steps per call (the kernel's counter), and scipy's
+     linear_sum_assignment on the host with the copy there (a note).
+ 13. train with the CLI: ``pairnet_torch.tools.train.main`` on the flagship
+     config at its own train pipeline (multi-scale, crop 0.5, flip 0.5,
+     batch 2, f32) over the 8 train images of phase 9's split:
+     ``--max-epochs 1`` (4 steps), then ``--resume --max-epochs 2``, then
+     ``pairnet_torch.tools.test.main`` scores ``epoch_2.pt`` (sgdet);
+     checks the NaN guard on every step, both checkpoints, the resume at
+     epoch 1, 6 + 6 MSDA and 2 Hungarian launches per step, no solver sync,
+     no plain call, phase 9's sgdet key set; logs s per step and the
+     loader's time for an epoch.
 Then one JSON line of kernels, one of serving, one of training, one of
-evaluation, the card's name and power limit, and the final line
-{"ok": true, "device": {...}}.
+evaluation, one of the train CLI, the card's name and power limit, and the
+final line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -66,6 +84,7 @@ import json
 import math
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -206,6 +225,7 @@ def main():
         set_deform_impl,
     )
     from pairnet_torch.models import layers as layers_mod
+    from pairnet_torch.models import matchers as matchers_mod
     from pairnet_torch.ops import _build
     from pairnet_torch.ops import deform_attn as msda_mod
     from pairnet_torch.ops import deform_attn_bwd as bwd_mod
@@ -219,7 +239,15 @@ def main():
     from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
     from pairnet_torch.ops import deform_attn_int4 as int4_mod
     from pairnet_torch.ops import deform_attn_int8 as int8_mod
+    from pairnet_torch.ops import hungarian as hungarian_mod
     from pairnet_torch.ops import masked_attn as flash_mod
+    from pairnet_torch.ops.hungarian import (
+        batched_hungarian,
+        batched_hungarian_plain,
+        prepare,
+        solve_n_le_m_cuda,
+        solve_n_le_m_plain,
+    )
     from pairnet_torch.ops.deform_attn_int4 import (
         int4_gather,
         int4_gather_plain,
@@ -544,9 +572,24 @@ def main():
     # the wrapper counts its launches on the module's deform_attn_bwd
     capturing_bwd.launches = orig_bwd.launches
 
+    captured_hung = []  # the inputs of the step's two matchers' Hungarian calls
+    recorded_hung = []  # (inputs, outputs) of every Hungarian call while recording
+    orig_hung = matchers_mod.batched_hungarian
+
+    def capturing_hung(cost, row_mask=None, col_mask=None):
+        if len(captured_hung) < 2:
+            captured_hung.append(tuple(None if t is None else t.detach().clone()
+                                       for t in (cost, row_mask, col_mask)))
+        return orig_hung(cost, row_mask, col_mask)
+
+    def recording_hung(cost, row_mask=None, col_mask=None):
+        out = orig_hung(cost, row_mask, col_mask)
+        recorded_hung.append(((cost.detach().clone(), row_mask, col_mask), out))
+        return out
+
     plain_calls = collections.Counter()
     plain_fns = [(msda_mod, "ms_deform_attn_plain"), (exact_mod, "ms_deform_attn_plain"),
-                 (bwd_mod, "ms_deform_attn_bwd_plain")]
+                 (bwd_mod, "ms_deform_attn_bwd_plain"), (hungarian_mod, "solve_n_le_m_plain")]
 
     def count_plain_calls(on):
         """Count every call of a plain MSDA version while ``on``."""
@@ -563,13 +606,15 @@ def main():
 
     def reset_launches():
         deform_attn_exact.launches = int4_quantize.launches = int4_gather.launches = 0
+        batched_hungarian.launches = 0
         deform_attn_bwd.launches.clear()
         plain_calls.clear()
 
     def launches():
         return {"deform_attn_exact": deform_attn_exact.launches,
                 "int4": int4_quantize.launches + int4_gather.launches,
-                "deform_attn_bwd": dict(deform_attn_bwd.launches), "plain": dict(plain_calls)}
+                "deform_attn_bwd": dict(deform_attn_bwd.launches),
+                "hungarian": batched_hungarian.launches, "plain": dict(plain_calls)}
 
     def finite(metrics):
         return all(bool(torch.isfinite(v)) for v in metrics.values())
@@ -579,11 +624,14 @@ def main():
     head0 = model_t.bbox_head.rel_cls_embed.weight.detach().clone()
     stem0 = model_t.backbone.conv1.weight.detach().clone()
     layers_mod.ms_deform_attn, bwd_mod.deform_attn_bwd = capturing, capturing_bwd
+    matchers_mod.batched_hungarian = capturing_hung
     m_warm = step(state, batch)  # warm-up; captures encoder layer 0's MSDA inputs
     layers_mod.ms_deform_attn, bwd_mod.deform_attn_bwd = orig_msda, orig_bwd
+    matchers_mod.batched_hungarian = orig_hung
     torch.cuda.synchronize()
     cum0 = float(state.cum_samples.sum())
     reset_launches()
+    syncs0 = batched_hungarian.syncs
     count_plain_calls(True)
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -594,9 +642,12 @@ def main():
     train_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     train_launches = launches()
+    train_syncs = batched_hungarian.syncs - syncs0
     n = 6 * TRAIN_STEPS
     check(train_launches == {"deform_attn_exact": n, "int4": 0, "deform_attn_bwd": {"bf16": n},
-                             "plain": {}}, f"training launches {train_launches}")
+                             "hungarian": 2 * TRAIN_STEPS, "plain": {}},
+          f"training launches {train_launches}")
+    check(train_syncs == 0, f"the Hungarian synced with the host {train_syncs} times")
     set_deform_bwd(model_t, "bf16_grad")
     reset_launches()
     metrics.append(step(state, batch))
@@ -604,7 +655,8 @@ def main():
     grad_launches = launches()
     count_plain_calls(False)
     check(grad_launches == {"deform_attn_exact": 6, "int4": 0, "deform_attn_bwd": {"bf16_grad": 6},
-                            "plain": {}}, f"bf16_grad step launches {grad_launches}")
+                            "hungarian": 2, "plain": {}},
+          f"bf16_grad step launches {grad_launches}")
     for m in [m_warm] + metrics:
         check(finite(m) and float(m["grad_norm"]) > 0, f"train metrics {m}")
     check(not torch.equal(model_t.bbox_head.rel_cls_embed.weight, head0), "head weight moved")
@@ -618,7 +670,8 @@ def main():
     train_img_s = TRAIN_BATCH * 1000.0 / train_ms
     log(f"[6] training batch {TRAIN_BATCH} bf16 at {IMG[0]}x{IMG[1]}: {train_ms:.1f} ms per step "
         f"= {train_img_s:.2f} img/s, peak {peak_gib:.2f} GiB; launches in {TRAIN_STEPS} steps "
-        f"{train_launches}, bf16_grad step {grad_launches}; losses finite, grad_norm "
+        f"{train_launches}, bf16_grad step {grad_launches}; Hungarian host syncs {train_syncs}; "
+        f"losses finite, grad_norm "
         f"{[round(float(m['grad_norm']), 4) for m in metrics]}; head moved, stem unchanged; "
         f"cum_samples {cum0:.0f} -> {float(state.cum_samples.sum()):.0f}; sampling_offsets "
         f"grad max per layer {[f'{g:.3g}' for g in offs_grad]}; last exact-step losses {last}")
@@ -649,8 +702,11 @@ def main():
                 r.start_replay()
         reset_launches()
         bwd_mod.deform_attn_bwd = capturing_bwd
+        if impl == "exact":
+            matchers_mod.batched_hungarian = recording_hung
         m = {k: float(v) for k, v in step_f(state_f, batch1).items()}
         bwd_mod.deform_attn_bwd = orig_bwd
+        matchers_mod.batched_hungarian = orig_hung
         trainer_mod.pairnet_targets = orig_targets
         torch.cuda.synchronize()
         grads = {f"{name}.{pn}": p.grad.detach().clone()
@@ -660,8 +716,15 @@ def main():
         del model_f, state_f, step_f
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     (m_k, g_k, l_k), (m_p, g_p, l_p) = runs["exact"], runs["plain"]
-    check(l_k["deform_attn_exact"] == 6 and l_k["deform_attn_bwd"] == {"f32": 6},
-          f"f32 kernel step launches {l_k}")
+    check(l_k["deform_attn_exact"] == 6 and l_k["deform_attn_bwd"] == {"f32": 6}
+          and l_k["hungarian"] == 2, f"f32 kernel step launches {l_k}")
+    # the plain loop on the kernel run's own costs: the same assignments
+    hung_diff = 0
+    for (cost, rm, cm), (r2c, c2r) in recorded_hung:
+        p_r2c, p_c2r = batched_hungarian_plain(cost, rm, cm)
+        hung_diff += int((p_r2c != r2c).sum()) + int((p_c2r != c2r).sum())
+    check(len(recorded_hung) == 2 and hung_diff == 0,
+          f"{hung_diff} Hungarian assignments differ from the plain loop's")
     check(l_p["deform_attn_exact"] == 0 and not l_p["deform_attn_bwd"],
           f"plain step launches {l_p}")
     loss_err, grad_err, grad_rel = {}, {}, 0.0
@@ -681,7 +744,8 @@ def main():
         f"{max(loss_err.values()):.3g}; {len(g_k)} MSDA parameter gradients max|d| "
         f"{max(grad_err.values()):.3g}, largest relative to their max {grad_rel:.3g} (tol "
         f"{TOL_TRAIN_REL} x max|plain| of each gradient); the plain run would have set "
-        f"otherwise: {flips}; kernel-run launches {l_k}")
+        f"otherwise: {flips}; kernel-run launches {l_k}; Hungarian assignments that differ "
+        f"from the plain loop's on the kernel run's costs: {hung_diff}")
     del runs, g_k, g_p, batch1
 
     # --- (8) the training kernels on the training paths' inputs ---
@@ -761,10 +825,11 @@ def main():
                 "masked_attn": masked_flash_attention.launches,
                 "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
 
-    def score(what, env, dtype="bf16", capture=False):
+    def score(what, env, dtype="bf16", capture=False, work_dir=None):
         """One run of ``pairnet_torch.tools.test.main`` with the environment
-        ``env``: its metrics after the key-set and finiteness checks, and the
-        kernel launches of the run per forward."""
+        ``env`` (on the checkpoint of ``work_dir`` if given, else random
+        weights): its metrics after the key-set and finiteness checks, and
+        the kernel launches of the run per forward."""
         saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN")}
         os.environ.update(env)
         cli.make_apply_fn = counting_apply_fn
@@ -780,9 +845,9 @@ def main():
         forwards[0] = 0
         count_plain_calls(True)
         try:
-            metrics = cli.main([SCORE_CONFIG, "--eval", what, "--batch-size", str(BATCH),
-                                "--dtype", dtype, "--device", DEVICE, "--cfg-options",
-                                *SCORE_SPLIT])
+            metrics = cli.main([SCORE_CONFIG, *([work_dir] if work_dir else []), "--eval", what,
+                                "--batch-size", str(BATCH), "--dtype", dtype, "--device",
+                                DEVICE, "--cfg-options", *SCORE_SPLIT])
             torch.cuda.synchronize()
         finally:
             count_plain_calls(False)
@@ -941,6 +1006,163 @@ def main():
             f"{name} {m.get('sgdet_images_per_s', m.get('PQ_images_per_s'))}"
             for name, (m, _, _) in runs.items()))
 
+    # --- (12) the Hungarian kernel against the plain loop ---
+    def hung_case(kind, B, n, m, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if kind == "ties":
+            cost = torch.randint(0, 4, (B, n, m), generator=g, device=dev).float()
+        else:
+            cost = torch.randn((B, n, m), generator=g, device=dev)
+        rm = torch.ones((B, n), dtype=torch.bool, device=dev)
+        cm = torch.ones((B, m), dtype=torch.bool, device=dev)
+        if kind == "padded":
+            rm[1::2, n - n // 3:] = False
+            cm[::2, m - m // 4:] = False
+        if kind == "nan entry":
+            cost[:, n // 2, m // 3] = float("nan")
+        return cost, rm, cm
+
+    step_calls = {"mask matcher": captured_hung[0], "id matcher": captured_hung[1]}
+    hung_cases = {**step_calls,
+                  "ties 4x100x100": hung_case("ties", 4, 100, 100, 11),
+                  "padded 4x64x100": hung_case("padded", 4, 64, 100, 12),
+                  "n < m 4x64x100": hung_case("normal", 4, 64, 100, 13),
+                  "n > m 4x100x64": hung_case("normal", 4, 100, 64, 14),
+                  "step shape 4x100x100": hung_case("normal", 4, 100, 100, 15),
+                  "nan entry 4x100x100": hung_case("nan entry", 4, 100, 100, 16)}
+    hung_err = {}
+    for name, (c, rm, cm) in hung_cases.items():
+        got, want = batched_hungarian(c, rm, cm), batched_hungarian_plain(c, rm, cm)
+        torch.cuda.synchronize()
+        hung_err[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
+        check(hung_err[name] == 0, f"hungarian {name}: {hung_err[name]} assignments differ "
+              "from the plain loop's")
+    nan_row = hung_case("normal", 2, 3, 3, 17)[0]
+    nan_row[0, 1] = float("nan")
+    nan_r2c, nan_steps = solve_n_le_m_cuda(nan_row)
+    torch.cuda.synchronize()
+    log(f"[12] hungarian kernel vs plain loop, row2col and col2row equal on "
+        f"{ {k: tuple(v[0].shape) for k, v in hung_cases.items()} }; a whole NaN row "
+        f"terminates: row2col {nan_r2c.tolist()}, search steps {nan_steps.tolist()} (not held "
+        "to a reference)")
+
+    def scipy_host_ms(c, rm, cm):
+        """scipy's linear_sum_assignment per image on the valid submatrix,
+        with the copy of the costs to the host (what the reference did)."""
+        from scipy.optimize import linear_sum_assignment
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost_h, rm_h, cm_h = (t.cpu().numpy() for t in (c.float(), rm, cm))
+        for b in range(cost_h.shape[0]):
+            linear_sum_assignment(cost_h[b][rm_h[b]][:, cm_h[b]])
+        return (time.perf_counter() - t0) * 1e3
+
+    hung_times = {}
+    for name in ("mask matcher", "id matcher", "n < m 4x64x100", "step shape 4x100x100"):
+        c, rm, cm = hung_cases[name]
+        rm = torch.ones(c.shape[:2], dtype=torch.bool, device=dev) if rm is None else rm
+        pc = prepare(c, rm, cm)[0]
+        _, steps = solve_n_le_m_cuda(pc)
+        B_, n_, m_ = pc.shape
+        t_bytes = (pc.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3
+        hung_times[name] = {
+            "solved_as": [B_, n_, m_],
+            "ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(pc), 20),
+            "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(pc), 20, spin=True),
+            "wrapper_ms": cuda_ms(torch, lambda: batched_hungarian(c, rm, cm), 20),
+            "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(pc), 1),
+            "bound_ms": t_bytes,
+            "search_steps": int(steps.sum()), "search_steps_max": int(steps.max()),
+            "scipy_host_ms": scipy_host_ms(c, rm, cm),
+        }
+        e = hung_times[name]
+        e["ns_per_step"] = e["device_ms"] * 1e6 / e["search_steps_max"]
+        log(f"[12] hungarian {name}, solved as {B_}x{n_}x{m_}: kernel {e['ms']:.4f} ms (behind a "
+            f"spin {e['device_ms']:.4f}), wrapper {e['wrapper_ms']:.4f}, plain loop "
+            f"{e['plain_ms']:.2f} ms, bound {t_bytes:.6f} ms (bytes); search steps "
+            f"{e['search_steps']} in all, {e['search_steps_max']} in the longest problem "
+            f"({e['ns_per_step']:.0f} ns a step); scipy on the host with the copy "
+            f"{e['scipy_host_ms']:.3f} ms")
+    step_times = [hung_times[k] for k in step_calls]
+    kernels.append({
+        "name": "hungarian", "route": "cuda", "source": "pairnet_torch/csrc/hungarian.cu",
+        "replaces": "pairnet_tpu/ops/hungarian.py:36 (_solve_n_le_m, a lax.while_loop under "
+                    "jit and vmap; not a pallas_call site)",
+        "launches": train_launches["hungarian"], "launches_per_step": 2,
+        "max_abs_err": float(max(hung_err.values())),
+        **{k: sum(e[k] for e in step_times) / 2
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None,
+        "search_steps_per_call": sum(e["search_steps"] for e in step_times) / 2,
+        "per_call": hung_times,
+    })
+
+    # --- (13) train with the CLI at full width ---
+    from pairnet_torch.tools import train as train_cli
+
+    train_split = build_dataset(score_cfg, "train")
+    train_pipe = build_pipeline_cfg(score_cfg, train=True)
+    check(train_pipe.crop_prob == 0.5 and train_pipe.flip_prob == 0.5
+          and len(train_pipe.train_scales) == 11, f"train pipeline {train_pipe}")
+    cli_runs = []
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN",
+                                                  "PAIRNET_DEBUG_NANS")}
+    os.environ["PAIRNET_DEBUG_NANS"] = "1"  # the Trainer's guard on every step's losses
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for extra in (["--max-epochs", "1"], ["--resume", "--max-epochs", "2"]):
+            torch.cuda.synchronize()
+            reset_launches()
+            syncs0 = batched_hungarian.syncs
+            count_plain_calls(True)
+            try:
+                summary = train_cli.main([SCORE_CONFIG, "--work-dir", work, "--device", DEVICE,
+                                          *extra, "--cfg-options", *SCORE_SPLIT])
+            finally:
+                count_plain_calls(False)
+            torch.cuda.synchronize()
+            got, steps = launches(), summary["steps"]
+            syncs = batched_hungarian.syncs - syncs0
+            want = {"deform_attn_exact": 6 * steps, "int4": 0,
+                    "deform_attn_bwd": {"f32": 6 * steps}, "hungarian": 2 * steps, "plain": {}}
+            check(got == want, f"train CLI {extra} launches {got}, expected {want}")
+            check(syncs == 0, f"train CLI: the Hungarian synced with the host {syncs} times")
+            check(all(math.isfinite(v) for v in summary["last"].values()),
+                  f"train CLI losses {summary['last']}")
+            cli_runs.append({"argv": extra, "start_epoch": summary["start_epoch"],
+                             "steps": steps, "s_per_step": summary["seconds"] / steps,
+                             "launches_per_step": {k: (v / steps if isinstance(v, int) else
+                                                       {i: n / steps for i, n in v.items()})
+                                                   for k, v in got.items() if k != "plain"},
+                             "hungarian_host_syncs": syncs, "losses": summary["last"]})
+        check([(r["start_epoch"], r["steps"]) for r in cli_runs] == [(0, 4), (1, 4)],
+              f"train CLI runs {cli_runs}")
+        ckpts = sorted(os.listdir(os.path.join(work, "ckpts")))
+        check(ckpts == ["epoch_1.pt", "epoch_2.pt"], f"checkpoints {ckpts}")
+        cli_metrics, _, cli_per_fwd = score("sgdet", {}, work_dir=work)
+        check(cli_per_fwd == int4_expect, f"scoring the trained checkpoint: {cli_per_fwd}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in Loader(train_split, train_pipe, 2, train=True, seed=10086))
+    train_loader_s = time.perf_counter() - t0
+    s_step = sum(r["s_per_step"] for r in cli_runs) / 2
+    run_steps = [(r["start_epoch"], r["steps"], round(r["s_per_step"], 3)) for r in cli_runs]
+    log(f"[13] train CLI on {os.path.relpath(SCORE_CONFIG)}, {len(train_split)} train images, "
+        f"batch 2, f32, crop 0.5, 11 scales, flip 0.5: runs {run_steps} "
+        f"(start epoch, steps, s per step); launches per step {cli_runs[0]['launches_per_step']}; "
+        f"Hungarian host syncs {[r['hungarian_host_syncs'] for r in cli_runs]}; checkpoints "
+        f"{ckpts}; sgdet on epoch_2.pt: key set as phase "
+        f"9's, finite; the loader alone: {train_loader_s:.3f} s for the epoch's {n_batches} "
+        f"batches ({train_loader_s / n_batches / s_step:.3f} of a step's time)")
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
                                   "ms_per_batch": serve_ms, "img_per_s": img_per_s}}))
@@ -950,12 +1172,18 @@ def main():
         "img_per_s": train_img_s, "peak_memory_gib": peak_gib,
         "launches_per_step": {
             "deform_attn_exact": train_launches["deform_attn_exact"] / TRAIN_STEPS,
-            "deform_attn_bwd": train_launches["deform_attn_bwd"]["bf16"] / TRAIN_STEPS},
+            "deform_attn_bwd": train_launches["deform_attn_bwd"]["bf16"] / TRAIN_STEPS,
+            "hungarian": train_launches["hungarian"] / TRAIN_STEPS},
+        "hungarian_host_syncs": train_syncs / TRAIN_STEPS,
         "losses": last, "f32_kernel_vs_plain": {
             "loss_max_abs_err": max(loss_err.values()),
             "msda_grad_max_abs_err": max(grad_err.values()), "msda_grad_max_rel_err": grad_rel,
             "replayed": flips}}}))
     print(json.dumps({"evaluation": evaluation}))
+    print(json.dumps({"train_cli": {
+        "config": os.path.relpath(SCORE_CONFIG), "train_images": len(train_split), "batch": 2,
+        "compute_dtype": "f32", "runs": cli_runs, "loader_s_per_epoch": train_loader_s,
+        "sgdet": cli_metrics}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -170,7 +170,7 @@ def train_phase_ms(events: list, step, state, batch) -> dict:
     """Device milliseconds of each phase of one train step: CUDA events
     recorded by the step's ``on_phase`` hook into ``events``, after one
     recorded at its start. Each span is the device timeline between two
-    boundaries, idle gaps (the Hungarian's host syncs) included."""
+    boundaries, idle gaps included."""
     from pairnet_torch.train.trainer import PHASES
 
     torch.cuda.synchronize()
@@ -212,9 +212,10 @@ def train_main(breakdown: bool) -> dict:
         "gpu": gpu_name_and_power_limit(),
     }
     if breakdown:
-        syncs = batched_hungarian.syncs
+        syncs, launches = batched_hungarian.syncs, batched_hungarian.launches
         result["phase_ms"] = train_phase_ms(events, step, state, batch)
         result["hungarian_host_syncs_per_step"] = batched_hungarian.syncs - syncs
+        result["hungarian_launches_per_step"] = batched_hungarian.launches - launches
         prof = device_profile(lambda: step(state, batch))
         result["device_busy_share"] = prof["kernel_ms"] / ms
         result["profile"] = prof

@@ -1,11 +1,15 @@
-"""Test-time preprocessing -> fixed-shape host batches (the port's copy of the
-test side of ``pairnet_tpu/data/pipeline.py``).
+"""Host-side preprocessing -> fixed-shape batches (the port's copy of
+``pairnet_tpu/data/pipeline.py``, train and test side).
 
 Keep-ratio resize to ``target_size`` (short, long), ImageNet normalization,
 padding into one canvas, GT instances padded to ``max_inst``, relations to
-``max_rels``, GT masks at ``mask_stride``. The train-time augmentation
-(multi-scale, flip, relation-aware crop) is not ported yet; the config
-fields that drive it are accepted and unused.
+``max_rels``, GT masks at ``mask_stride``. At train time, as the JAX
+package: with probability ``crop_prob`` the relation-aware crop branch
+(resize to a ``crop_scales`` short side, :func:`rel_random_crop`, falling
+back to the plain branch when no triplet survives), a ``train_scales``
+short side, and a horizontal flip with probability ``flip_prob``. The
+draws come from a numpy ``Generator`` in the JAX package's order, so one
+seed gives the same arrays bit for bit.
 
 Batch contract (numpy):
   image       (B, H, W, 3) f32 normalized
@@ -20,6 +24,7 @@ Batch contract (numpy):
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -39,9 +44,11 @@ class PipelineConfig:
     mask_stride: int = 4
     max_inst: int = 64
     max_rels: int = 100
-    # train-time augmentation, accepted from the configs and not ported yet
     flip_prob: float = 0.5
-    train_scales: tuple[int, ...] = ()
+    train_scales: tuple[int, ...] = ()  # multi-scale short sides (train)
+    # crop branch (train): with prob crop_prob, resize to a random
+    # crop_scales short side, rel_random_crop with a crop size drawn in
+    # crop_size_range, then the multi-scale resize
     crop_prob: float = 0.0
     crop_scales: tuple[int, ...] = (400, 500, 600)
     crop_size_range: tuple[int, int] = (384, 600)
@@ -90,8 +97,14 @@ def keep_ratio_scale(h: int, w: int, short: int, long: int) -> float:
     return min(long / max(h, w), short / min(h, w))
 
 
-def preprocess_sample(dataset, idx: int, cfg: PipelineConfig) -> dict:
-    """One image -> fixed-shape numpy sample dict (test time)."""
+def preprocess_sample(dataset, idx: int, cfg: PipelineConfig, train: bool = False,
+                      rng: np.random.Generator | None = None) -> dict:
+    """One image -> fixed-shape numpy sample dict. ``train`` draws the
+    augmentation from ``rng`` in the JAX package's order: the crop branch's
+    coin (only when ``cfg.crop_prob`` is set), then inside it the crop
+    scale, the crop height and width and the offsets, then the train scale,
+    then the flip's coin (always at train time)."""
+    rng = rng or np.random.default_rng()
     img = dataset.load_image(idx)
     masks, _, _ = dataset.load_masks(idx)
     ann = dataset.get_ann_info(idx)
@@ -100,7 +113,26 @@ def preprocess_sample(dataset, idx: int, cfg: PipelineConfig) -> dict:
 
     short, long = cfg.target_size
     orig_h, orig_w = img.shape[:2]
-    img_r = resize_image(img, keep_ratio_scale(orig_h, orig_w, short, long))
+    if train and cfg.crop_prob and rng.random() < cfg.crop_prob:
+        # resize -> rel_random_crop -> resize; when no triplet survives the
+        # crop, the plain resize branch below runs on the original image
+        short0 = int(rng.choice(cfg.crop_scales))
+        img0 = resize_image(img, keep_ratio_scale(orig_h, orig_w, short0, long))
+        m0 = resize_masks_nearest(masks, img0.shape[:2])
+        cmin, cmax = cfg.crop_size_range
+        h0, w0 = img0.shape[:2]
+        ch = int(rng.integers(min(cmin, h0), min(cmax, h0) + 1))
+        cw = int(rng.integers(min(cmin, w0), min(cmax, w0) + 1))
+        cropped = rel_random_crop(img0, m0, labels, rels, (ch, cw), rng)
+        if cropped is not None:
+            img, masks, labels, rels = cropped
+    if train and cfg.train_scales:
+        short = int(rng.choice(cfg.train_scales))
+    img_r = resize_image(img, keep_ratio_scale(img.shape[0], img.shape[1], short, long))
+    if train and rng.random() < cfg.flip_prob:
+        img_r = img_r[:, ::-1]
+        masks = masks[:, :, ::-1]
+
     pad_h, pad_w = cfg.padded_hw()
     rh, rw = min(img_r.shape[0], pad_h), min(img_r.shape[1], pad_w)
     if native.available():
@@ -153,31 +185,73 @@ def preprocess_sample(dataset, idx: int, cfg: PipelineConfig) -> dict:
     }
 
 
+def rel_random_crop(img: np.ndarray, masks: np.ndarray, labels: np.ndarray, rels: np.ndarray,
+                    crop_hw: tuple[int, int], rng: np.random.Generator):
+    """Relation-aware random crop (the reference's RelRandomCrop): crop the
+    image at offsets drawn from ``rng`` (y, then x), drop instances whose
+    mask vanishes, re-index the surviving relations by the prefix sum of
+    kept instances, and return None when no triplet survives.
+
+    img (H, W, 3) uint8; masks (N, H, W) bool; rels (R, 3) predicate 1-based.
+    """
+    ch, cw = crop_hw
+    H, W = img.shape[:2]
+    off_y = int(rng.integers(0, max(H - ch, 0) + 1))
+    off_x = int(rng.integers(0, max(W - cw, 0) + 1))
+    img_c = img[off_y : off_y + ch, off_x : off_x + cw]
+    masks_c = masks[:, off_y : off_y + ch, off_x : off_x + cw]
+    valid = masks_c.any(axis=(1, 2))
+    new_index = np.cumsum(valid) - 1
+    rels_left = [[int(new_index[s]), int(new_index[o]), int(p)]
+                 for s, o, p in rels if valid[s] and valid[o]]
+    if not rels_left:
+        return None
+    return img_c, masks_c[valid], labels[valid], np.asarray(rels_left, np.int32)
+
+
 def collate(samples: list[dict]) -> dict:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 class Loader:
-    """Test-time loader: the split in order, preprocessed on a thread pool
-    (``num_workers`` threads; 0 runs in the caller's thread) with
-    ``prefetch`` batches in flight, collated to fixed shapes. A trailing
-    partial batch is padded with its first sample and ``batch_valid`` marks
-    the real ones."""
+    """Epoch loader: the split in order (shuffled by ``seed`` at train time),
+    preprocessed, collated to fixed shapes. ``num_workers`` threads (None:
+    ``PAIRNET_LOADER_WORKERS``, default 4) preprocess with ``prefetch``
+    batches in flight, each sample drawing from its own
+    ``default_rng([seed, position])``; with ``num_workers <= 0`` the
+    caller's thread draws the shuffle and every sample from one sequential
+    stream seeded ``seed``, as the JAX package's loader does. ``drop_last``
+    (default: ``train``) drops a trailing partial batch; otherwise it is
+    padded with its first sample and ``batch_valid`` marks the real ones."""
 
-    def __init__(self, dataset, cfg: PipelineConfig, batch_size: int, num_workers: int = 4,
+    def __init__(self, dataset, cfg: PipelineConfig, batch_size: int, train: bool = False,
+                 seed: int = 0, drop_last: bool | None = None, num_workers: int | None = None,
                  prefetch: int = 2):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
+        self.train = train
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        self.drop_last = train if drop_last is None else drop_last
+        if num_workers is None:
+            num_workers = int(os.environ.get("PAIRNET_LOADER_WORKERS", "4"))
         self.num_workers = num_workers
         self.prefetch = prefetch
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
-
-    def _plan(self):
         n, b = len(self.dataset), self.batch_size
-        return [list(range(start, min(start + b, n))) for start in range(0, n, b)]
+        return n // b if self.drop_last else -(-n // b)
+
+    def _plan(self, order) -> list[tuple[int, list[int]]]:
+        """(position of the batch's first sample, its dataset indices)."""
+        b = self.batch_size
+        end = len(order) - len(order) % b if self.drop_last else len(order)
+        return [(start, [int(i) for i in order[start : start + b]]) for start in range(0, end, b)]
+
+    def _make_sample(self, i: int, pos: int) -> dict:
+        rng = np.random.default_rng([self.seed, pos])
+        return preprocess_sample(self.dataset, i, self.cfg, self.train, rng)
 
     def _finalize(self, samples: list[dict]) -> dict:
         n_real = len(samples)
@@ -187,20 +261,23 @@ class Loader:
         return batch
 
     def __iter__(self):
-        plan = self._plan()
+        order = np.arange(len(self.dataset))
+        if self.train:
+            self.rng.shuffle(order)
+        plan = self._plan(order)
         if self.num_workers <= 0:
-            for idxs in plan:
-                yield self._finalize([preprocess_sample(self.dataset, i, self.cfg)
-                                      for i in idxs])
+            for _, idxs in plan:
+                yield self._finalize([preprocess_sample(self.dataset, i, self.cfg, self.train,
+                                                        self.rng) for i in idxs])
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            def submit(idxs):
-                return [pool.submit(preprocess_sample, self.dataset, i, self.cfg) for i in idxs]
+            def submit(start, idxs):
+                return [pool.submit(self._make_sample, i, start + k) for k, i in enumerate(idxs)]
 
             depth = max(1, self.prefetch)
-            pending = [submit(idxs) for idxs in plan[:depth]]
+            pending = [submit(*item) for item in plan[:depth]]
             for nxt in range(depth, len(plan) + depth):
                 futs = pending.pop(0)
                 if nxt < len(plan):
-                    pending.append(submit(plan[nxt]))
+                    pending.append(submit(*plan[nxt]))
                 yield self._finalize([f.result() for f in futs])

@@ -1,0 +1,78 @@
+"""The balanced relation sampler (the port's copy of
+``BalancedRelationDataset`` in ``pairnet_tpu/data/sg.py``).
+
+The box-only scene graph datasets of that module (VG-150, Open Images V6)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class BalancedRelationDataset:
+    """LVIS-style repeat-factor oversampling keyed on predicate frequency
+    (the reference's balanced_wrapper): per-predicate repeat factor
+    r(c) = max(1, sqrt(thr / f(c))) with f(c) the predicate's share of all
+    relations; per-image factor r(I) = the max over the image's predicates,
+    rounded up; image I appears r(I) times in a row. The frequencies
+    default to the wrapped split's own."""
+
+    def __init__(self, dataset, oversample_thr: float, rel_cls_freq: dict | None = None):
+        self.dataset = dataset
+        self.CLASSES = dataset.CLASSES
+        self.PREDICATES = dataset.PREDICATES
+
+        if rel_cls_freq is None:
+            freq = np.zeros(len(dataset.PREDICATES) + 1)
+            for i in range(len(dataset)):
+                for p in dataset.data[i].relations[:, 2]:
+                    freq[int(p)] += 1
+            rel_cls_freq = {c: f for c, f in enumerate(freq) if f > 0}
+
+        total = sum(rel_cls_freq.values())
+        repeat = {c: max(1.0, np.sqrt(oversample_thr / (f / total)))
+                  for c, f in rel_cls_freq.items()}
+
+        self.repeat_indices: list[int] = []
+        for idx in range(len(dataset)):
+            rels = dataset.get_ann_info(idx)["rels"]
+            factors = [repeat.get(int(p), 1.0) for p in rels[:, 2]] or [1.0]
+            self.repeat_indices.extend([idx] * int(np.ceil(max(factors))))
+
+    def __len__(self) -> int:
+        return len(self.repeat_indices)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def get_ann_info(self, idx: int):
+        return self.dataset.get_ann_info(self.repeat_indices[idx])
+
+    def load_image(self, idx: int):
+        return self.dataset.load_image(self.repeat_indices[idx])
+
+    def load_masks(self, idx: int):
+        return self.dataset.load_masks(self.repeat_indices[idx])
+
+    @property
+    def data(self):
+        return _IndexedView(self.dataset.data, self.repeat_indices)
+
+
+class _IndexedView:
+    """``base`` seen through ``indices``: item i is ``base[indices[i]]``."""
+
+    def __init__(self, base, indices):
+        self._base = base
+        self._indices = indices
+
+    def __len__(self):
+        return len(self._indices)
+
+    def __getitem__(self, i):
+        return self._base[self._indices[i]]
+
+    def __iter__(self):
+        for i in self._indices:
+            yield self._base[i]

@@ -20,7 +20,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("deform_attn_exact", "deform_attn_quant", "deform_attn_bwd", "masked_attn")
+SOURCES = ("deform_attn_exact", "deform_attn_quant", "deform_attn_bwd", "masked_attn", "hungarian")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -4,26 +4,51 @@ Counterpart of ``pairnet_tpu/ops/hungarian.py``: the Jonker-Volgenant
 shortest-augmenting-path algorithm, with the same padding contract
 (``PAD_COST``, costs clipped to +-PAD_COST/4) and the same tie order (the
 first minimum: ``torch.argmin`` returns the first, as ``jnp.argmin`` does).
-The B problems of a step are solved together, as the JAX ``vmap`` of its
-``while_loop``s does: a problem whose loop has ended keeps its state
-(masked updates) while the others go on.
 
-The search loop for a row ends on a device flag that the host reads: one
-host sync per iteration of the longest search in the batch. The augmenting
-walk needs none, because its path is no longer than the search that built
-it, so it runs that many masked steps. ``batched_hungarian.syncs`` counts
-the host syncs.
+The JAX solver is a ``while_loop`` under ``jit``/``vmap`` that never comes
+back to the host. Its counterpart here is the kernel of
+``csrc/hungarian.cu``: one CTA per problem, launched on the current stream,
+no host sync. On CUDA tensors :func:`batched_hungarian` launches it
+(``batched_hungarian.launches``) or raises, for more than ``MAX_COLS``
+columns, a failed build or a launch error; the preparation (clip, pad) and
+the post-processing (transpose back, strip pad matches) are torch ops that
+do not sync either.
+
+The plain version, :func:`solve_n_le_m_plain`, is the same algorithm as a
+loop of torch ops over the batch. CPU tensors take it; it runs on any
+device. A problem whose search has ended keeps its state (masked updates)
+while the others go on, as the JAX ``vmap`` does. Its search loop ends on
+a device flag that the host reads, one sync per search step of the
+longest search in the batch, counted in ``batched_hungarian.syncs``. The
+augmenting walk needs none: its path is no longer than the search that
+built it, so it runs that many masked steps.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from pairnet_torch.ops import _build
 
 _INF = 1e18
 PAD_COST = 1e6
+MAX_COLS = 256  # the kernel's limit on m, the longer side of a problem
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 
 
-def _solve_n_le_m(cost):
+@functools.cache
+def _lib():
+    lib = _build.load("hungarian")
+    lib.hungarian_solve.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.hungarian_solve.restype = ctypes.c_int
+    return lib
+
+
+def solve_n_le_m_plain(cost):
     """JV on a batch of (n, m) cost matrices, n <= m, f32. Returns row2col
     (B, n): the assigned column of every row (always valid since n <= m)."""
     B, n, m = cost.shape
@@ -92,30 +117,71 @@ def _solve_n_le_m(cost):
     return row2col[:, :n]
 
 
-def batched_hungarian(cost, row_mask=None, col_mask=None):
-    """Solve B (n, m) assignment problems on the device.
-
-    cost (B, n, m); masks (B, n) / (B, m) bool or None. Masked (padded) rows
-    and columns never match a valid counterpart. Returns ``(row2col (B, n),
-    col2row (B, m))``, int64 with -1 for unassigned or invalid. Matches
-    ``scipy.optimize.linear_sum_assignment`` on each valid submatrix.
-    """
+def solve_n_le_m_cuda(cost):
+    """The kernel on a batch of (n, m) f32 cost matrices on the card, n <=
+    m <= ``MAX_COLS``: (row2col int64 (B, n), steps int32 (B,), the search
+    steps each problem took)."""
     B, n, m = cost.shape
-    dev = cost.device
+    if not 1 <= n <= m <= MAX_COLS:
+        raise ValueError(f"hungarian kernel: takes 1 <= n <= m <= {MAX_COLS}, not n={n}, m={m}")
+    if cost.dtype != torch.float32:
+        raise TypeError(f"hungarian kernel: f32 costs, not {cost.dtype}")
+    cost = cost.contiguous()
+    row2col = torch.empty((B, n), dtype=torch.long, device=cost.device)
+    steps = torch.empty((B,), dtype=torch.int32, device=cost.device)
+    if B == 0:
+        return row2col, steps
+    with torch.cuda.device(cost.device):
+        status = _lib().hungarian_solve(
+            cost.data_ptr(), row2col.data_ptr(), steps.data_ptr(), B, n, m,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(status, "hungarian")
+    batched_hungarian.launches += 1
+    return row2col, steps
+
+
+def _solve_n_le_m(cost):
+    """The kernel for CUDA tensors, the plain loop for CPU tensors."""
+    if cost.device.type == "cpu":
+        return solve_n_le_m_plain(cost)
+    if cost.device.type != "cuda":
+        raise ValueError(f"batched_hungarian: unsupported device {cost.device}")
+    return solve_n_le_m_cuda(cost)[0]
+
+
+def prepare(cost, row_mask=None, col_mask=None):
+    """The f32 costs the solver sees: ``cost`` (B, n, m) clipped to
+    +-PAD_COST/4, padded rows and columns set to ``PAD_COST``, transposed
+    to (B, m, n) when n > m so that the solver's rows never outnumber its
+    columns. Returns (costs, row_mask, col_mask), the masks filled in."""
+    B, n, m = cost.shape
     if row_mask is None:
-        row_mask = torch.ones((B, n), dtype=torch.bool, device=dev)
+        row_mask = torch.ones((B, n), dtype=torch.bool, device=cost.device)
     if col_mask is None:
-        col_mask = torch.ones((B, m), dtype=torch.bool, device=dev)
-    # clip to a sane range, then overwrite padded entries with the constant
+        col_mask = torch.ones((B, m), dtype=torch.bool, device=cost.device)
     cost = cost.float().clamp(-PAD_COST / 4, PAD_COST / 4)
     cost = torch.where(col_mask[:, None, :], cost, PAD_COST)
     cost = torch.where(row_mask[:, :, None], cost, PAD_COST)
+    if n > m:
+        cost = cost.transpose(1, 2).contiguous()
+    return cost, row_mask, col_mask
+
+
+def _assign(solve, cost, row_mask, col_mask):
+    B, n, m = cost.shape
+    dev = cost.device
+    cost, row_mask, col_mask = prepare(cost, row_mask, col_mask)
     if n <= m:
-        row2col = _solve_n_le_m(cost)
+        row2col = solve(cost)
     else:
-        col2row_full = _solve_n_le_m(cost.transpose(1, 2).contiguous())  # (B, m), < n
-        row2col = torch.full((B, n), -1, dtype=torch.long, device=dev)
-        row2col.scatter_(1, col2row_full, torch.arange(m, device=dev).expand(B, m))
+        col2row_full = solve(cost)  # (B, m), < n
+        # a column the inner solve left unassigned (-1) is dropped, as JAX's
+        # scatter with mode="drop" drops it
+        row2col = torch.full((B, n + 1), -1, dtype=torch.long, device=dev)
+        row2col.scatter_(1, torch.where(col2row_full >= 0, col2row_full, n),
+                         torch.arange(m, device=dev).expand(B, m))
+        row2col = row2col[:, :n]
     # strip pad-pad matches: a valid row matched to an invalid column (or
     # vice versa) is reported unmatched
     col_ok = torch.gather(col_mask, 1, row2col.clamp(0, m - 1))
@@ -126,4 +192,22 @@ def batched_hungarian(cost, row_mask=None, col_mask=None):
     return cols_ok, col2row[:, :m]
 
 
+def batched_hungarian(cost, row_mask=None, col_mask=None):
+    """Solve B (n, m) assignment problems on the device.
+
+    cost (B, n, m); masks (B, n) / (B, m) bool or None. Masked (padded) rows
+    and columns never match a valid counterpart. Returns ``(row2col (B, n),
+    col2row (B, m))``, int64 with -1 for unassigned or invalid. Matches
+    ``scipy.optimize.linear_sum_assignment`` on each valid submatrix.
+    """
+    return _assign(_solve_n_le_m, cost, row_mask, col_mask)
+
+
+def batched_hungarian_plain(cost, row_mask=None, col_mask=None):
+    """Plain version of :func:`batched_hungarian` on any device: the same
+    preparation and post-processing around :func:`solve_n_le_m_plain`."""
+    return _assign(solve_n_le_m_plain, cost, row_mask, col_mask)
+
+
 batched_hungarian.syncs = 0
+batched_hungarian.launches = 0

@@ -10,6 +10,7 @@ from pairnet_torch.config import Config
 from pairnet_torch.config.registry import DATASETS
 from pairnet_torch.data.pipeline import PipelineConfig
 from pairnet_torch.data.psg import PSGDataset  # noqa: F401  (registers PSGDataset)
+from pairnet_torch.data.sg import BalancedRelationDataset
 from pairnet_torch.models.frameworks.psgtr import build_model
 
 # synthetic fixtures are cached here, keyed by their generator options
@@ -51,13 +52,13 @@ def synthetic_root(opts: dict) -> str:
 def build_dataset(cfg: Config, split: str):
     """The dataset of ``cfg.data.dataset``. ``synthetic=True`` with an empty
     ``data_root`` gives the default 8-image fixture, ``synthetic=dict(...)``
-    passes generator options (num_images, height, width, ...)."""
+    passes generator options (num_images, height, width, ...). With
+    ``balanced=dict(oversample_thr=...)`` the train split is wrapped in the
+    balanced relation sampler."""
     d = dict(cfg.data.dataset)
     ds_type = d.pop("type", "PSGDataset")
     synthetic = d.pop("synthetic", False)
-    if d.pop("balanced", None):
-        raise NotImplementedError("the balanced relation sampler is train-time; not ported yet "
-                                  "(ROADMAP queue A, train CLI)")
+    balanced = d.pop("balanced", None)
     if synthetic and not d.get("data_root"):
         opts = dict(synthetic) if isinstance(synthetic, dict) else {}
         opts.setdefault("num_images", 8)
@@ -67,7 +68,10 @@ def build_dataset(cfg: Config, split: str):
     if ds_type not in DATASETS:
         raise NotImplementedError(f"dataset type {ds_type!r} is not ported yet (only "
                                   "PSGDataset; ROADMAP queue A)")
-    return DATASETS.get(ds_type)(split=split, **d)
+    ds = DATASETS.get(ds_type)(split=split, **d)
+    if balanced and split == "train":
+        ds = BalancedRelationDataset(ds, **dict(balanced))
+    return ds
 
 
 def build_detector(cfg: Config, device=None, seed: int = 0):

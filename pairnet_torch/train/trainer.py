@@ -12,15 +12,15 @@ Counterpart of ``pairnet_tpu/train/trainer.py`` on one device:
   to f32 before the loss; autograd through the casts returns f32 gradients
   to the f32 masters;
 * :class:`Trainer`: ``fit`` / ``train_epoch`` / ``val_epoch``, checkpoints
-  with ``torch.save`` and keep-rotation, ``resume``, and the NaN guard
-  (``PAIRNET_DEBUG_NANS``).
+  with ``torch.save`` and keep-rotation, ``resume``, the NaN guard
+  (``PAIRNET_DEBUG_NANS``) and the profiler knob (``PAIRNET_PROFILE_DIR``:
+  ``torch.profiler`` traces iterations 2-4 of epoch 0 into that directory).
 
 Randomness: each step draws two seeds from the state's generator, one for
 the mask-cost sampling points and one for the device's default generator,
 which dropout reads, seeded inside ``torch.random.fork_rng``.
-The loss of a step never reaches the host inside the step; the target
-building's Hungarian solver reads its loop flags there (see
-``ops/hungarian.py``).
+Nothing of a step reaches the host inside the step on the card: the
+target building's Hungarian runs as a kernel there (``ops/hungarian.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from typing import Any, Callable
 import torch
 from torch.func import functional_call
 
-from pairnet_torch.models.heads.pairnet_loss import pairnet_loss, pairnet_targets
+from pairnet_torch.models.heads.pairnet_loss import pairnet_targets
+from pairnet_torch.train.dispatch import get_loss_fn
 from pairnet_torch.train.optim import GRAD_CLIP, clip_by_global_norm, set_lr
 
 logger = logging.getLogger("pairnet_torch")
@@ -105,17 +106,19 @@ PHASES = ("forward", "targets", "loss", "backward", "optimizer")
 
 def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_dtype=None,
                     schedule: Callable[[int], float] | None = None,
-                    on_phase: Callable[[str], None] | None = None):
+                    on_phase: Callable[[str], None] | None = None,
+                    grad_clip: float = GRAD_CLIP):
     """The train step ``(state, batch) -> metrics``: advances ``state`` in
     place and returns the losses and ``grad_norm`` (the pre-clip global
     norm) as device tensors. ``batch`` holds device tensors: ``image``
     (B, H, W, 3) and the padded GT (``gt_labels``, ``gt_masks``,
-    ``gt_valid``, ``gt_rels``, ``rel_valid``). ``schedule`` maps the step
-    to the base lr; without it the optimizer's lr stays as built.
-    ``on_phase(name)`` is called at the end of each of ``PHASES`` (a
-    profiling hook: the bench records a CUDA event there)."""
-    loss_kwargs = dict(loss_kwargs or {})
-    num_points = loss_kwargs.pop("num_points", 12544)
+    ``gt_valid``, ``gt_rels``, ``rel_valid``). ``loss_kwargs`` are the
+    config's ``loss`` options. ``schedule`` maps the step to the base lr;
+    without it the optimizer's lr stays as built. ``on_phase(name)`` is
+    called at the end of each of ``PHASES`` (a profiling hook: the bench
+    records a CUDA event there). ``grad_clip`` is the max global norm."""
+    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}})
+    num_points = loss_fn.num_points
     params = list(model.parameters())
     mark = on_phase or (lambda name: None)
 
@@ -138,8 +141,7 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
         mark("forward")
         targets = pairnet_targets(out, batch, points)
         mark("targets")
-        losses, new_cum = pairnet_loss(out, batch, points, state.cum_samples, targets=targets,
-                                       **loss_kwargs)
+        losses, new_cum = loss_fn(out, batch, points, state.cum_samples, targets=targets)
         mark("loss")
         optimizer.zero_grad(set_to_none=False)
         losses["loss_total"].backward()
@@ -147,7 +149,7 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
         for p in params:  # a parameter the loss never reads has gradient 0, as in JAX
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grad_norm = clip_by_global_norm([p.grad for p in params], GRAD_CLIP)
+        grad_norm = clip_by_global_norm([p.grad for p in params], grad_clip)
         optimizer.step()
         mark("optimizer")
         state.cum_samples = new_cum
@@ -163,17 +165,17 @@ def make_val_step(model, loss_kwargs: dict | None = None):
     """The val step ``(state, batch) -> losses``: deterministic f32 forward,
     the same losses, no gradient and no change to the state. Its points
     come from a copy of the state's generator."""
-    loss_kwargs = dict(loss_kwargs or {})
-    num_points = loss_kwargs.pop("num_points", 12544)
+    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}})
 
     @torch.no_grad()
     def val_step(state: TrainState, batch: dict) -> dict:
         batch = _upcast_masks(batch)
         image = batch["image"]
         g = torch.Generator().set_state(state.generator.get_state())
-        points = sample_points(image.shape[0], num_points, _draw_seeds(g, 1)[0], image.device)
+        points = sample_points(image.shape[0], loss_fn.num_points, _draw_seeds(g, 1)[0],
+                               image.device)
         model.eval()
-        losses, _ = pairnet_loss(model(image), batch, points, state.cum_samples, **loss_kwargs)
+        losses, _ = loss_fn(model(image), batch, points, state.cum_samples)
         return losses
 
     return val_step
@@ -192,7 +194,7 @@ class Trainer:
     def __init__(self, state: TrainState, work_dir: str, loss_kwargs: dict | None = None,
                  log_interval: int = 50, ckpt_interval_epochs: int = 1,
                  max_keep_ckpts: int = 15, compute_dtype=None,
-                 schedule: Callable[[int], float] | None = None):
+                 schedule: Callable[[int], float] | None = None, grad_clip: float = GRAD_CLIP):
         self.state = state
         self.ckpt_dir = Path(work_dir) / "ckpts"
         self.log_interval = log_interval
@@ -200,10 +202,10 @@ class Trainer:
         self.max_keep_ckpts = max_keep_ckpts
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self._step_fn = make_train_step(state.model, state.optimizer, loss_kwargs, compute_dtype,
-                                        schedule)
+                                        schedule, grad_clip=grad_clip)
         self._val_fn = make_val_step(state.model, loss_kwargs)
 
-    def _ckpts(self) -> list[tuple[int, Path]]:
+    def checkpoints(self) -> list[tuple[int, Path]]:
         found = []
         for p in self.ckpt_dir.glob("epoch_*.pt"):
             m = re.fullmatch(r"epoch_(\d+)\.pt", p.name)
@@ -213,7 +215,7 @@ class Trainer:
 
     def resume(self) -> int:
         """Load the latest checkpoint if there is one; returns its epoch."""
-        ckpts = self._ckpts()
+        ckpts = self.checkpoints()
         if not ckpts:
             return 0
         epoch, path = ckpts[-1]
@@ -229,17 +231,46 @@ class Trainer:
         tmp = path.with_suffix(".tmp")
         torch.save({"epoch": epoch, "state": self.state.state_dict()}, tmp)
         os.replace(tmp, path)
-        for _, old in self._ckpts()[: -self.max_keep_ckpts]:
+        for _, old in self.checkpoints()[: -self.max_keep_ckpts]:
             old.unlink()
+        return path
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.state.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str, epoch: int, first: int, last: int) -> Path:
+        if self.state.device.type == "cuda":
+            torch.cuda.synchronize(self.state.device)
+        prof.stop()
+        path = Path(profile_dir) / f"trace_epoch{epoch}_iter{first}-{last}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        logger.info("profiler trace written to %s", path)
         return path
 
     def train_epoch(self, loader, epoch: int) -> dict:
         t0 = time.time()
         last = {}
         nan_check = bool(os.environ.get("PAIRNET_DEBUG_NANS"))
+        # with PAIRNET_PROFILE_DIR set, trace iterations 2-4 of epoch 0
+        # (past the first steps' allocations and kernel builds)
+        profile_dir = os.environ.get("PAIRNET_PROFILE_DIR")
+        prof = None
         for i, batch in enumerate(loader):
+            if profile_dir and epoch == 0 and i == 2:
+                prof = self._start_profile()
             batch = to_device(batch, self.state.device)
             metrics = self._step_fn(self.state, batch)
+            if prof is not None and i == 4:
+                self._stop_profile(prof, profile_dir, epoch, 2, i)
+                prof = None
             if nan_check:
                 bad = {k: float(v) for k, v in metrics.items() if not float(v) == float(v)}
                 if bad:
@@ -249,6 +280,8 @@ class Trainer:
                 logger.info("epoch %d iter %d time %.3fs %s", epoch, i + 1,
                             (time.time() - t0) / (i + 1),
                             " ".join(f"{k}={v:.4f}" for k, v in last.items()))
+        if prof is not None:  # the epoch ended inside the window
+            self._stop_profile(prof, profile_dir, epoch, 2, i)
         return last
 
     def val_epoch(self, loader, epoch: int) -> dict:
@@ -267,11 +300,13 @@ class Trainer:
     def fit(self, loader_fn: Callable[[int], Any], max_epochs: int,
             val_loader_fn: Callable[[int], Any] | None = None,
             eval_hook: Callable[[TrainState, int], dict] | None = None,
-            eval_interval: int = 1) -> dict:
+            eval_interval: int = 1, resume: bool = True) -> dict:
         """Per epoch: train, then the optional val pass, a checkpoint every
         ``ckpt_interval_epochs``, then the optional eval hook every
-        ``eval_interval`` epochs. Starts from the latest checkpoint."""
-        start = self.resume()
+        ``eval_interval`` epochs. Starts from the latest checkpoint, or at
+        epoch 0 with ``resume=False``; ``start_epoch`` records where."""
+        start = self.resume() if resume else 0
+        self.start_epoch = start
         last = {}
         for epoch in range(start, max_epochs):
             last = self.train_epoch(loader_fn(epoch), epoch)

@@ -14,7 +14,9 @@ exact inverse of the JAX package's checkpoint converter
 * nn.Embedding weight             <- the flax parameter itself
 
 Every port parameter and buffer must be filled and every JAX leaf used;
-anything else raises.
+anything else raises. The ``--load-from`` warm start of the train CLI
+(:func:`load_pretrained`) overlays instead: a leaf the model lacks or of
+another shape raises, a tensor with no leaf keeps its init.
 """
 
 from __future__ import annotations
@@ -157,6 +159,76 @@ def load_jax_variables(model: nn.Module, variables: dict, prefix: str = "") -> n
             if tuple(dst.shape) != arr.shape:
                 raise ValueError(f"{name}: port {tuple(dst.shape)} vs JAX {arr.shape}")
             dst.copy_(torch.tensor(arr))
+    return model
+
+
+def unflatten(flat) -> dict:
+    """A ``"/"``-joined flat mapping (an ``.npz`` of flax variables,
+    ``"params/backbone/conv1/kernel"``) as a nested dict."""
+    tree: dict = {}
+    for key, val in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def merge_pretrained(model: nn.Module, pretrained: dict) -> nn.Module:
+    """Overlay the flax variables ``pretrained`` (``{"params": ...,
+    "constants": ...}``, any part of the tree) onto ``model`` in place, as
+    ``pairnet_tpu.utils.torch_convert.merge_pretrained`` does on flax
+    variables: a leaf that no port tensor takes raises ``KeyError``, a shape
+    mismatch ``ValueError``; a tensor with no leaf keeps its init."""
+    flat = {(col,) + path: np.asarray(v) for col, tree in pretrained.items()
+            for path, v in _leaves(tree)}
+    state = model.state_dict(keep_vars=True)
+    used = set()
+    with torch.no_grad():
+        for name, col, paths, fn in tensor_leaves(model):
+            keys = [(col,) + p for p in paths]
+            present = [k in flat for k in keys]
+            if not any(present):
+                continue
+            if not all(present):
+                raise KeyError(f"{name}: only some of its leaves are given: "
+                               f"{['/'.join(k) for k, ok in zip(keys, present) if ok]}")
+            used.update(keys)
+            arr = np.ascontiguousarray(fn([flat[k] for k in keys]))
+            dst = state[name]
+            if tuple(dst.shape) != arr.shape:
+                raise ValueError(f"shape mismatch at {name}: {tuple(dst.shape)} vs {arr.shape}")
+            dst.copy_(torch.tensor(arr))
+    unknown = sorted("/".join(k) for k in flat if k not in used)
+    if unknown:
+        raise KeyError(f"unexpected converted keys: {unknown}")
+    return model
+
+
+def load_pretrained(model: nn.Module, path: str) -> nn.Module:
+    """Warm-start ``model`` in place from ``path``: an ``.npz`` of
+    ``"/"``-flattened flax variables (:func:`merge_pretrained`), or a port
+    checkpoint ``ckpts/epoch_<n>.pt`` whose model state is overlaid with the
+    same rules (unknown key or shape mismatch raises, a missing key keeps
+    its init)."""
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            return merge_pretrained(model, unflatten(dict(f)))
+    if not path.endswith(".pt"):
+        raise ValueError(f"load_from {path!r}: expected an .npz of flax variables or a port "
+                         "checkpoint .pt")
+    sd = torch.load(path, map_location="cpu", weights_only=True)["state"]["model"]
+    state = model.state_dict(keep_vars=True)
+    unknown = sorted(set(sd) - set(state))
+    if unknown:
+        raise KeyError(f"unexpected checkpoint keys: {unknown}")
+    with torch.no_grad():
+        for name, val in sd.items():
+            if state[name].shape != val.shape:
+                raise ValueError(f"shape mismatch at {name}: {tuple(state[name].shape)} vs "
+                                 f"{tuple(val.shape)}")
+            state[name].copy_(val)
     return model
 
 

@@ -41,6 +41,12 @@ from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
     int8_quantize,
     int8_quantize_plain,
 )
+from pairnet_torch.ops.hungarian import (  # noqa: E402
+    MAX_COLS,
+    batched_hungarian,
+    batched_hungarian_plain,
+    solve_n_le_m_cuda,
+)
 from pairnet_torch.ops.masked_attn import (  # noqa: E402
     chunk_keys,
     masked_flash_attention,
@@ -409,3 +415,97 @@ def test_autograd_reaches_bwd_kernel(cuda_inputs, impl):
     ref = ms_deform_attn_bwd_plain(value, shapes, locs, w, g.to(out.dtype))
     err, failures = bwd_mismatch(grads, ref)
     assert not failures, (err, failures)
+
+
+def _hungarian_case(kind, B, n, m, seed):
+    """(cost, row_mask, col_mask) numpy inputs of one Hungarian GPU case."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        cost = rng.integers(0, 4, size=(B, n, m)).astype(np.float32)
+    else:
+        cost = rng.normal(size=(B, n, m)).astype(np.float32)
+    row_mask = np.ones((B, n), bool)
+    col_mask = np.ones((B, m), bool)
+    if kind == "padded":
+        row_mask[1::2, n - n // 3:] = False
+        col_mask[::2, m - m // 4:] = False
+        cost[~row_mask] = 1e9
+        cost.transpose(0, 2, 1)[~col_mask] = -1e9
+    if kind == "nan_entry":
+        cost[:, n // 2, m // 3] = np.nan
+    return cost, row_mask, col_mask
+
+
+def _hungarian_on_card(cost, row_mask, col_mask):
+    """Kernel (CUDA tensors) and plain loop (CPU tensors) on the same inputs:
+    both results as numpy, and the kernel launches of the call."""
+    c, r, k = _on_card(cost, row_mask, col_mask)
+    launches, syncs = batched_hungarian.launches, batched_hungarian.syncs
+    got = batched_hungarian(c, r, k)
+    torch.cuda.synchronize()
+    assert batched_hungarian.syncs == syncs, "the kernel path synced with the host"
+    n_launch = batched_hungarian.launches - launches
+    want = batched_hungarian_plain(torch.tensor(cost), torch.tensor(row_mask),
+                                   torch.tensor(col_mask))
+    return [t.cpu().numpy() for t in got], [t.numpy() for t in want], n_launch
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "padded", "nan_entry"])
+@pytest.mark.parametrize("B, n, m", [(4, 64, 100), (4, 100, 100), (4, 100, 64), (3, 7, 7),
+                                     (5, 1, 9), (2, 9, 1), (2, 200, 256)])
+def test_hungarian_kernel_matches_plain(kind, B, n, m):
+    """The kernel's assignments equal the plain loop's bit for bit: the train
+    step's batch (4 x 64 x 100 and 100 x 100, and 100 x 64 as the mask
+    matcher hands it), square, n < m and n > m, m at the kernel's limit
+    (costs read from global memory, too large for shared), integer costs
+    with ties, padded rows and columns, and a single NaN entry."""
+    got, want, n_launch = _hungarian_on_card(*_hungarian_case(kind, B, n, m, seed=B * n + m))
+    assert n_launch == 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_hungarian_kernel_nan_row_terminates():
+    """A whole row of NaN costs has no reference answer (the JAX solver does
+    not return): the kernel returns, and its result is logged, not held."""
+    cost = np.asarray([[[1.0, 2.0, 3.0], [np.nan] * 3, [3.0, 1.0, 2.0]]], np.float32)
+    cost = np.concatenate([cost, np.random.default_rng(0).normal(size=(3, 3, 3))]).astype(
+        np.float32)
+    cost[2, 0] = np.nan
+    c, = _on_card(cost)
+    row2col, steps = solve_n_le_m_cuda(c)
+    torch.cuda.synchronize()
+    print("all-NaN row: kernel row2col", row2col.cpu().tolist(), "steps", steps.cpu().tolist(),
+          "plain", batched_hungarian_plain(torch.tensor(cost))[0].tolist())
+    assert row2col.shape == (4, 3) and int(steps.max()) <= 3 * 4
+
+
+def test_hungarian_kernel_raises_above_its_limit():
+    """More than MAX_COLS columns (as given, or after the n > m transpose)
+    raises and launches nothing; so does n > m given to the kernel itself."""
+    cost, = _on_card(np.zeros((1, 3, MAX_COLS + 1), np.float32))
+    launches = batched_hungarian.launches
+    with pytest.raises(ValueError, match="n <= m <= 256"):
+        batched_hungarian(cost)
+    with pytest.raises(ValueError, match="n <= m <= 256"):
+        batched_hungarian(cost.transpose(1, 2))
+    with pytest.raises(ValueError, match="n <= m <= 256"):
+        solve_n_le_m_cuda(cost[:, :, :2])
+    assert batched_hungarian.launches == launches
+
+
+def test_hungarian_kernel_calls_in_a_row_on_one_stream():
+    """Five calls queued on one stream with no sync between them, the
+    step's two shapes alternating: each result equals the plain loop's."""
+    cases = [_hungarian_case("normal", 4, n, m, seed=s)
+             for s, (n, m) in enumerate([(100, 64), (100, 100)] * 2 + [(100, 64)])]
+    on_card = [_on_card(*case) for case in cases]
+    launches, syncs = batched_hungarian.launches, batched_hungarian.syncs
+    results = [batched_hungarian(*args) for args in on_card]
+    torch.cuda.synchronize()
+    assert batched_hungarian.launches - launches == 5
+    assert batched_hungarian.syncs == syncs
+    for (cost, rm, cm), got in zip(cases, results):
+        want = batched_hungarian_plain(torch.tensor(cost), torch.tensor(rm), torch.tensor(cm))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

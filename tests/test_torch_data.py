@@ -1,6 +1,7 @@
 """Port parity: the data layer of ``pairnet_torch`` (PNG codec, synthetic PSG
 fixture, PSG reader, test-time loader) against PIL and the JAX package."""
 
+import collections
 import io
 import json
 import struct
@@ -222,3 +223,139 @@ def test_jax_loader_threads_find_the_native_library_loaded(monkeypatch):
     for jb, tb in zip(jl, tl, strict=True):
         for k in jb:
             np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+
+
+# train-time augmentation at the tiny fixture's size (96x128 images): the
+# crop branch always taken, with crops small enough that some keep no
+# triplet (the plain resize branch then runs), three train scales
+TRAIN_AUG = {"data.pipeline.crop_prob": 1.0, "data.pipeline.crop_scales": (64, 96),
+             "data.pipeline.crop_size_range": (24, 48),
+             "data.pipeline.train_scales": (64, 80, 96)}
+
+
+@pytest.mark.parametrize("num_workers", [0, 2], ids=["one_stream", "per_sample_rngs"])
+@pytest.mark.parametrize("seed, flip_prob", [(0, 0.5), (5, 0.0)])
+def test_train_loader_batches_equal_jax(seed, flip_prob, num_workers, monkeypatch):
+    """The train split shuffled, cropped, rescaled and flipped: every array
+    of every batch of two epochs (loader seeds ``seed`` and ``seed + 1``,
+    as the train CLI gives them) bit for bit, with the caller's thread
+    drawing from one stream and with two threads drawing per-sample rngs.
+    At ``flip_prob=0`` the flip's coin is still drawn. The split has no
+    (subject, object) pair with two predicates, so the dataset's own draws
+    do not depend on the threads' order."""
+    from pairnet_torch.data import pipeline
+
+    crops = collections.Counter()
+    crop = pipeline.rel_random_crop
+
+    def counting_crop(*args):
+        out = crop(*args)
+        crops["kept" if out is not None else "no triplet"] += 1
+        return out
+
+    monkeypatch.setattr(pipeline, "rel_random_crop", counting_crop)
+    jcfg, tcfg = j_load_config(TINY), load_config(TINY)
+    for path, val in {**TRAIN_AUG, "data.pipeline.flip_prob": flip_prob}.items():
+        jcfg.set_path(path, val)
+        tcfg.set_path(path, val)
+    tds = build_dataset(tcfg, "train")
+    jds = jax_dataset(synthetic_root(TINY_SPLIT), "train")
+    for d in tds.data:
+        pairs = [(int(s), int(o)) for s, o, _ in d.relations]
+        assert len(pairs) == len(set(pairs))
+    n = 0
+    for epoch in range(2):
+        jl = JLoader(jds, j_build_pipeline_cfg(jcfg, train=True), 2, train=True,
+                     seed=seed + epoch, num_workers=num_workers)
+        tl = Loader(tds, build_pipeline_cfg(tcfg, train=True), 2, train=True, seed=seed + epoch,
+                    num_workers=num_workers)
+        assert len(tl) == len(jl) == len(tds) // 2
+        for jb, tb in zip(jl, tl, strict=True):
+            assert set(jb) == set(tb)
+            for k in jb:
+                assert tb[k].dtype == jb[k].dtype, k
+                np.testing.assert_array_equal(tb[k], jb[k], err_msg=f"epoch {epoch} {k}")
+            n += 1
+    assert n == 4
+    assert crops["kept"] > 0 and crops["no triplet"] > 0, crops
+
+
+def test_loader_reads_its_worker_count_from_the_environment(monkeypatch):
+    monkeypatch.setenv("PAIRNET_LOADER_WORKERS", "3")
+    cfg = build_pipeline_cfg(load_config(TINY), train=True)
+    assert Loader([], cfg, 2).num_workers == 3
+    assert Loader([], cfg, 2, num_workers=0).num_workers == 0
+    assert Loader([], cfg, 2, train=True).drop_last and not Loader([], cfg, 2).drop_last
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_rel_random_crop_equals_jax(seed):
+    """A hand-made 8x8 image with four instances in column pairs (0: 0-1,
+    2: 2-3, 3: 4-5, 1: 6-7) and a 8x4 crop at a drawn x offset: the kept
+    instances and the relations re-indexed by the prefix sum of kept ones,
+    as JAX's, and as worked out here; None when no triplet survives."""
+    from pairnet_tpu.data.pipeline import rel_random_crop as j_crop
+
+    from pairnet_torch.data.pipeline import rel_random_crop
+
+    img = np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3)
+    cols = {0: (0, 2), 2: (2, 4), 3: (4, 6), 1: (6, 8)}
+    masks = np.zeros((4, 8, 8), bool)
+    for i, (a, b) in cols.items():
+        masks[i, :, a:b] = True
+    labels = np.asarray([10, 11, 12, 13])
+    rels = np.asarray([[0, 2, 1], [1, 3, 2], [2, 3, 3], [0, 1, 4]], np.int32)
+    got = rel_random_crop(img, masks, labels, rels, (8, 4), np.random.default_rng(seed))
+    want = j_crop(img, masks, labels, rels, (8, 4), np.random.default_rng(seed))
+    probe = np.random.default_rng(seed)
+    probe.integers(0, 1)  # off_y: the crop spans the height
+    off_x = int(probe.integers(0, 5))
+    kept = [i for i, (a, b) in sorted(cols.items()) if a < off_x + 4 and b > off_x]
+    new = {i: k for k, i in enumerate(kept)}
+    rels_left = [[new[s], new[o], p] for s, o, p in rels.tolist() if s in new and o in new]
+    if not rels_left:
+        assert got is None and want is None
+        return
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0], img[:, off_x:off_x + 4])
+    np.testing.assert_array_equal(got[2], labels[kept])
+    assert got[3].tolist() == rels_left
+
+
+@pytest.mark.parametrize("thr", [0.03, 0.3])
+def test_balanced_sampler_equals_jax(thr):
+    """``repeat_indices`` and every wrapped sample's annotations, image and
+    masks, as the JAX package's ``BalancedRelationDataset`` gives them on
+    the same split; 0.3 repeats some images."""
+    from pairnet_tpu.data.sg import BalancedRelationDataset as JBalanced
+
+    from pairnet_torch.data.psg import PSGDataset
+    from pairnet_torch.data.sg import BalancedRelationDataset
+
+    root = synthetic_root(TINY_SPLIT)
+    jb = JBalanced(jax_dataset(root, "train"), oversample_thr=thr)
+    tb = BalancedRelationDataset(PSGDataset("psg.json", data_root=root, split="train"),
+                                 oversample_thr=thr)
+    assert tb.repeat_indices == jb.repeat_indices
+    assert len(tb) == len(jb) == len(tb.data)
+    if thr == 0.3:
+        assert len(tb) > len(tb.dataset)
+    for i in range(len(tb)):
+        assert tb.data[i].image_id == jb.data[i].image_id
+        ja, ta = jb.get_ann_info(i), tb.get_ann_info(i)
+        for k in ("bboxes", "labels", "rels", "rel_maps"):
+            np.testing.assert_array_equal(ta[k], ja[k], err_msg=k)
+        np.testing.assert_array_equal(tb.load_image(i), jb.load_image(i))
+        for a, b in zip(tb.load_masks(i), jb.load_masks(i)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_build_dataset_balances_only_the_train_split():
+    from pairnet_torch.data.sg import BalancedRelationDataset
+
+    cfg = load_config(TINY)
+    cfg.set_path("data.dataset.balanced", {"oversample_thr": 0.3})
+    train, test = build_dataset(cfg, "train"), build_dataset(cfg, "test")
+    assert isinstance(train, BalancedRelationDataset) and train.dataset.split == "train"
+    assert isinstance(test, PSGDataset) and test.split == "test"

@@ -18,7 +18,7 @@ from pairnet_tpu.ops.hungarian import batched_hungarian as j_batched_hungarian
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from pairnet_torch.ops.hungarian import PAD_COST, batched_hungarian  # noqa: E402
+from pairnet_torch.ops.hungarian import MAX_COLS, PAD_COST, batched_hungarian  # noqa: E402
 
 SHAPES = [(7, 7), (11, 5), (5, 11), (20, 24), (100, 24)]
 
@@ -81,3 +81,72 @@ def test_no_masks_and_host_sync_count():
     assert sorted(r2c[0].tolist()) == list(range(6)) and (c2r >= 0).all()
     assert batched_hungarian.syncs - before >= 6
     assert PAD_COST == 1e6
+
+
+def _jax_pair(cost, row_mask=None, col_mask=None):
+    """The port's and the JAX solver's (row2col, col2row) on ``cost``."""
+    masks = [None if m is None else torch.tensor(m) for m in (row_mask, col_mask)]
+    got = [t.numpy() for t in batched_hungarian(torch.tensor(cost), *masks)]
+    jmasks = [None if m is None else jnp.asarray(m) for m in (row_mask, col_mask)]
+    want = [np.asarray(t) for t in j_batched_hungarian(jnp.asarray(cost), *jmasks)]
+    return got, want
+
+
+@pytest.mark.parametrize("n,m", [(7, 7), (5, 9), (9, 5)])
+def test_single_nan_entry_matches_jax(n, m):
+    """One NaN entry per problem (``cur < minv`` is false for it, so it never
+    enters minv): the plain loop's answer is pinned against JAX's."""
+    rng = np.random.default_rng(n * 10 + m)
+    cost = rng.normal(size=(4, n, m)).astype(np.float32)
+    for b in range(4):
+        cost[b, rng.integers(n), rng.integers(m)] = np.nan
+    (r2c, c2r), (j_r2c, j_c2r) = _jax_pair(cost)
+    np.testing.assert_array_equal(r2c, j_r2c)
+    np.testing.assert_array_equal(c2r, j_c2r)
+    assert (r2c >= 0).sum() == 4 * min(n, m)
+
+
+@pytest.mark.parametrize("n,m", [(6, 6), (4, 10), (10, 4)])
+def test_all_ties_matches_jax(n, m):
+    """Every cost equal: each search step's argmin is a tie over all
+    available columns, resolved to the lowest (the first minimum)."""
+    cost = np.full((2, n, m), 0.25, np.float32)
+    (r2c, c2r), (j_r2c, j_c2r) = _jax_pair(cost)
+    np.testing.assert_array_equal(r2c, j_r2c)
+    np.testing.assert_array_equal(c2r, j_c2r)
+    assert sorted(c2r[0][c2r[0] >= 0].tolist()) == list(range(min(n, m)))
+
+
+def test_widest_problem_matches_scipy_and_jax():
+    """m = MAX_COLS = 256, the CUDA kernel's limit, with padded columns."""
+    rng = np.random.default_rng(256)
+    cost = rng.normal(size=(2, 12, MAX_COLS)).astype(np.float32)
+    col_mask = np.ones((2, MAX_COLS), bool)
+    col_mask[1, 200:] = False
+    (r2c, c2r), (j_r2c, j_c2r) = _jax_pair(cost, None, col_mask)
+    np.testing.assert_array_equal(r2c, j_r2c)
+    np.testing.assert_array_equal(c2r, j_c2r)
+    for b in range(2):
+        cols = np.flatnonzero(col_mask[b])
+        ri, ci = linear_sum_assignment(cost[b][:, cols])
+        np.testing.assert_array_equal(r2c[b][ri], cols[ci])
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_tall_problem_with_unassigned_column_returns(seed):
+    """n > m with an all-NaN column: the transposed solve leaves that column
+    (a row of the inner problem) unassigned, -1, which is dropped as JAX's
+    scatter with mode="drop" drops it, not written to row -1 (which raised
+    ``index -1 is out of bounds``). Nothing refers to the NaN column, each
+    assigned column appears once, and col2row inverts row2col."""
+    cost = np.random.default_rng(seed).normal(size=(2, 6, 4)).astype(np.float32)
+    cost[:, :, 2] = np.nan
+    r2c, c2r = (t.numpy() for t in batched_hungarian(torch.tensor(cost)))
+    for b in range(2):
+        assigned = r2c[b][r2c[b] >= 0]
+        assert len(set(assigned.tolist())) == len(assigned) >= 2
+        assert 2 not in assigned and c2r[b, 2] == -1
+        for r, c in enumerate(r2c[b]):
+            if c >= 0:
+                assert c2r[b, c] == r
+        assert sorted(c2r[b][c2r[b] >= 0].tolist()) == np.flatnonzero(r2c[b] >= 0).tolist()

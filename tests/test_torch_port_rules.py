@@ -19,9 +19,10 @@ from pairnet_torch import flagship as flagship_mod  # noqa: E402
 from pairnet_torch.ops import _build  # noqa: E402
 from pairnet_torch.ops.deform_attn import ms_deform_attn  # noqa: E402
 from pairnet_torch.ops.deform_attn_exact import deform_attn_exact  # noqa: E402
-from pairnet_torch.ops import deform_attn_int4, masked_attn  # noqa: E402
+from pairnet_torch.ops import deform_attn_int4, hungarian, masked_attn  # noqa: E402
 from pairnet_torch.ops.deform_attn_int4 import int4_gather, int4_quantize  # noqa: E402
 from pairnet_torch.ops.deform_attn_int8 import int8_gather, int8_quantize  # noqa: E402
+from pairnet_torch.ops.hungarian import batched_hungarian  # noqa: E402
 from pairnet_torch.ops.masked_attn import masked_flash_attention  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -60,7 +61,8 @@ def test_port_imports_no_pil_at_module_level(path):
 def test_import_leaves_jax_out():
     code = (
         "import sys, pairnet_torch.flagship, pairnet_torch.bench, pairnet_torch.tools.test, "
-        "pairnet_torch.evaluation.runner, pairnet_torch.train.builder; "
+        "pairnet_torch.evaluation.runner, pairnet_torch.train.builder, "
+        "pairnet_torch.tools.train, pairnet_torch.data.sg; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
     )
@@ -79,7 +81,7 @@ def test_flagship_defaults_to_cuda_and_raises_without_it(monkeypatch):
 def _launches():
     return [deform_attn_exact.launches, int4_quantize.launches, int4_gather.launches,
             dict(int8_quantize.launches), dict(int8_gather.launches),
-            masked_flash_attention.launches]
+            masked_flash_attention.launches, batched_hungarian.launches]
 
 
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
@@ -96,7 +98,11 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     q = torch.randn(4, 5, 8)
     flash = masked_flash_attention(q, torch.randn(4, 9, 8), torch.randn(4, 9, 8),
                                    torch.rand(2, 5, 9) < 0.5, 2)
+    syncs = batched_hungarian.syncs
+    row2col, _ = batched_hungarian(torch.randn(2, 5, 7))
+    assert batched_hungarian.syncs > syncs  # the plain loop reads its flag on the host
     assert _launches() == before
+    assert row2col.dtype == torch.int64 and (row2col >= 0).all()
     assert out.dtype == torch.float32 and out4.dtype == out8.dtype == torch.bfloat16
     assert flash.dtype == torch.float32 and np.isfinite(flash.numpy()).all()
     assert np.isfinite(out.numpy()).all()
@@ -114,10 +120,12 @@ def test_new_wrappers_take_no_plain_version_off_the_cpu():
     q = torch.empty((2, 5, 8), device="meta")
     kv = torch.empty((2, 9, 8), device="meta")
     mask = torch.empty((1, 5, 9), dtype=torch.bool, device="meta")
+    cost = torch.empty((2, 5, 7), device="meta")
     before = _launches()
     for call in (lambda: int8_quantize(v, shapes),
                  lambda: int8_gather(codes, scales, shapes, lc, wt),
-                 lambda: masked_flash_attention(q, kv, kv, mask, 2)):
+                 lambda: masked_flash_attention(q, kv, kv, mask, 2),
+                 lambda: batched_hungarian(cost), lambda: batched_hungarian(cost.mT)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert _launches() == before
@@ -139,7 +147,8 @@ def test_cuda_tensor_without_a_card_raises(monkeypatch):
                  lambda: int8_gather(fake((1, 6, 2, 8), torch.int8), fake((1, 2, 1, 8)), shapes,
                                      fake((1, 4, 2, 1, 2, 2)), fake((1, 4, 2, 1, 2))),
                  lambda: masked_flash_attention(fake((2, 5, 8)), fake((2, 9, 8)),
-                                                fake((2, 9, 8)), fake((1, 5, 9), torch.bool), 2)):
+                                                fake((2, 9, 8)), fake((1, 5, 9), torch.bool), 2),
+                 lambda: batched_hungarian(fake((2, 5, 7)))):
         with pytest.raises((RuntimeError, AssertionError)):
             call()
 
@@ -160,8 +169,8 @@ def test_quantize_workspace_is_zeroed_once_per_stream(monkeypatch):
     assert deform_attn_int4.quantize_workspace(cpu, 7, 100) is grown
 
 
-@pytest.mark.parametrize("lib", [deform_attn_int4._lib, masked_attn._lib],
-                         ids=["deform_attn_quant", "masked_attn"])
+@pytest.mark.parametrize("lib", [deform_attn_int4._lib, masked_attn._lib, hungarian._lib],
+                         ids=["deform_attn_quant", "masked_attn", "hungarian"])
 def test_failed_build_raises_from_the_new_wrappers(monkeypatch, lib):
     def fail(name):
         raise _build.BuildError(f"CUDA build failed: {name}.cu")
@@ -180,6 +189,7 @@ def test_every_source_is_built_and_binds_its_entry_points():
     entries = {
         "deform_attn_quant": deform_attn_int4.QUANTIZE_FNS + deform_attn_int4.GATHER_FNS,
         "masked_attn": tuple(masked_attn._FN.values()),
+        "hungarian": ("hungarian_solve",),
     }
     for source, names in entries.items():
         text = (_build.CSRC / f"{source}.cu").read_text()
