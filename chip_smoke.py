@@ -22,7 +22,8 @@ result line then):
      its plain version on those inputs (a kernel's ``ms`` as the host
      issues its calls, ``device_ms`` with them queued behind a spin of the
      card), and each kernel's bound. One quantize call launches each of its
-     two passes once and no fill (torch.profiler).
+     two passes once and no fill (the profiler's kernel names; the call
+     captured as a CUDA graph holds exactly two kernels and nothing else).
   6. train full-width Pair-Net R-50 (800x1344, batch 4, bf16 compute over
      f32 masters, the geometry of ``python -m pairnet_torch.bench --train``):
      a warm-up and 3 steps on the exact backward, then 1 step on the
@@ -72,9 +73,34 @@ result line then):
      epoch 1, 6 + 6 MSDA and 2 Hungarian launches per step, no solver sync,
      no plain call, phase 9's sgdet key set; logs s per step and the
      loader's time for an epoch.
+ 14. serve full-width Pair-Net Swin-B (``flagship(backbone="swinb")``,
+     800x1344, batch 8, bf16, int4 MSDA): 6 int4 quantize and 6 int4 gather
+     launches per forward, no plain call, finite outputs, 100 pairs per
+     image; the int4 kernels against their plain versions on this path's
+     inputs; img/s, the stage ms of ``bench --breakdown``, the backbone's
+     kernels by kind and the window attention's share (a profiler scope).
+ 15. an f32 Swin-B forward (batch 1, TF32 off) through the exact kernel
+     against the same forward through the plain MSDA, as phase 4.
+ 16. score ``configs/pairnet/pairnet_swinb_psg.py`` with
+     ``pairnet_torch.tools.test.main`` over phase 9's split, its class and
+     predicate name lists extended to PSG's 133 and 56 (bf16, int4,
+     sgdet, ``--save-results``: the numpy oracle, which resizes without
+     PIL), then ``pairnet_torch.tools.vis_results.main`` on the pickle: one
+     PNG per image, 3W + H wide (2W + H without a panoptic panel), with its
+     ``.dot`` and ``.triplets.txt``; PIL never loaded.
+ 17. train ``pairnet_swinb_psg.py`` with ``pairnet_torch.tools.train.main``
+     (its pipeline, batch 2, f32) for one epoch of 4 steps over phase 9's
+     train images: the NaN guard, 6 + 6 MSDA and 2 Hungarian launches per
+     step, no solver sync, no plain call; a parameter moved in every Swin
+     stage and in a relative-position table; s per step.
+ 18. the attn, fc and direct configs, and ``conv_small`` / ``conv_base`` by
+     ``model.bbox_head.mapper=...``, built by ``build_model`` at full width,
+     serve a batch of 2 bf16 through int4: 6 + 6 launches, no plain call,
+     finite outputs, 100 pairs per image.
 Then one JSON line of kernels, one of serving, one of training, one of
-evaluation, one of the train CLI, the card's name and power limit, and the
-final line {"ok": true, "device": {...}}.
+evaluation, one of the train CLI, one of Swin-B and the other heads
+(``swin``), the card's name and power limit, and the final line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -114,6 +140,7 @@ TOL_FLASH = 1e-4
 LQ = 100  # decoder queries
 SCORE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "configs/pairnet/pairnet_r50_psg.py")
+SWIN_CONFIG = os.path.join(os.path.dirname(SCORE_CONFIG), "pairnet_swinb_psg.py")
 SCORE_SPLIT = ("data.dataset.data_root=", "data.dataset.synthetic={'num_images':24,"
                "'num_test':16,'height':800,'width':1333,'seed':3}")
 SCORE_IMAGES = 16
@@ -264,13 +291,13 @@ def main():
         masked_flash_attention,
         masked_flash_attention_plain,
     )
-    from pairnet_torch.tools.msda_kernels import cuda_ms, kernel_split
+    from pairnet_torch.tools.msda_kernels import cuda_ms, graph_nodes, kernel_split
     from pairnet_torch.train import trainer as trainer_mod
 
     smi = gpu_name_and_power_limit()
     dev = torch.device(DEVICE)
-    kind = torch.cuda.get_device_name(0)
-    log(f"[0] gpu: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+    device_kind = torch.cuda.get_device_name(0)
+    log(f"[0] gpu: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {device_kind}")
     wrappers = {"deform_attn_exact": deform_attn_exact, "int4_quantize": int4_quantize,
                 "int4_gather": int4_gather}
 
@@ -420,49 +447,58 @@ def main():
 
     # --- (4) f32 forward: exact kernel vs plain MSDA ---
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def exact_vs_plain(model32, img32, capture=False):
+        """One f32 forward (TF32 off) through the exact kernel against the
+        same forward through the plain MSDA: (max |d| per output, decided
+        top-k ranks, attention-mask bits the plain run would set otherwise,
+        exact launches). The plain run reuses the exact run's attention
+        masks, so one borderline sigmoid < 0.5 bit cannot make the runs
+        diverge; the bits it would have set differently are counted."""
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dec = model32.bbox_head.transformer_decoder
+        set_deform_impl(model32, "exact")
+        masks = Replay(lambda *a: type(dec).attn_mask_small(dec, *a),
+                       lambda own, kept: int((own != kept).sum()))
+        dec.attn_mask_small = masks
+        for fn in wrappers.values():
+            fn.launches = 0
+        if capture:
+            layers_mod.ms_deform_attn = capturing
+        with torch.inference_mode():
+            out_e = model32(img32)
+        layers_mod.ms_deform_attn = orig_msda
+        torch.cuda.synchronize()
+        n_exact = deform_attn_exact.launches
+        check(n_exact == 6, f"exact launches {n_exact}")
+        masks.start_replay()
+        set_deform_impl(model32, "plain")
+        with torch.inference_mode():
+            out_p = model32(img32)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        errs = {}
+        for key in ("cls", "mask", "importance", "queries", "rel"):
+            ref = out_p[key].float()
+            errs[key] = float((out_e[key].float() - ref).abs().max())
+            bound = TOL_FORWARD_REL * max(1.0, float(ref.abs().max()))
+            check(errs[key] <= bound, f"{key}: exact vs plain {errs[key]} > {bound}")
+        ok = decided_ranks(out_p["importance"][0], 100, errs["importance"] * 10 + 1e-6)
+        check(torch.equal(out_e["sub_pos"][0][ok], out_p["sub_pos"][0][ok])
+              and torch.equal(out_e["obj_pos"][0][ok], out_p["obj_pos"][0][ok]),
+              "pair indices at decided ranks")
+        return errs, int(ok.sum()), masks.flips, n_exact
+
     model32 = perturb_deform_kernels(flagship(device=dev, dtype=torch.float32, seed=0))
-    img32 = images[:1].float()
-    dec = model32.bbox_head.transformer_decoder
-    set_deform_impl(model32, "exact")
-    # the plain run reuses the exact run's attention masks, so one
-    # borderline sigmoid < 0.5 bit cannot make the runs diverge; the bits
-    # it would have set differently are counted
-    masks = Replay(lambda *a: type(dec).attn_mask_small(dec, *a),
-                   lambda own, kept: int((own != kept).sum()))
-    dec.attn_mask_small = masks
-    for fn in wrappers.values():
-        fn.launches = 0
-    layers_mod.ms_deform_attn = capturing
-    with torch.inference_mode():
-        out_e = model32(img32)
-    layers_mod.ms_deform_attn = orig_msda
-    torch.cuda.synchronize()
-    exact_launches = deform_attn_exact.launches
-    check(exact_launches == 6, f"exact launches {exact_launches}")
-    masks.start_replay()
-    set_deform_impl(model32, "plain")
-    with torch.inference_mode():
-        out_p = model32(img32)
-    torch.cuda.synchronize()
-    fwd_err = {}
-    for key in ("cls", "mask", "importance", "queries", "rel"):
-        ref = out_p[key].float()
-        fwd_err[key] = float((out_e[key].float() - ref).abs().max())
-        bound = TOL_FORWARD_REL * max(1.0, float(ref.abs().max()))
-        check(fwd_err[key] <= bound, f"{key}: exact vs plain {fwd_err[key]} > {bound}")
-    ok = decided_ranks(out_p["importance"][0], 100, fwd_err["importance"] * 10 + 1e-6)
-    check(torch.equal(out_e["sub_pos"][0][ok], out_p["sub_pos"][0][ok])
-          and torch.equal(out_e["obj_pos"][0][ok], out_p["obj_pos"][0][ok]),
-          "pair indices at decided ranks")
+    fwd_err, n_decided, flips4, exact_launches = exact_vs_plain(model32, images[:1].float(),
+                                                                capture=True)
     log(f"[4] f32 batch 1, exact kernel vs plain MSDA (TF32 off): max|d| "
         f"{ {k: f'{v:.3g}' for k, v in fwd_err.items()} } (tol {TOL_FORWARD_REL} x "
-        f"max(1, max|plain|)); pair indices equal at {int(ok.sum())}/100 decided ranks; "
-        f"{masks.flips} attention-mask bits the plain run would set otherwise; "
+        f"max(1, max|plain|)); pair indices equal at {n_decided}/100 decided ranks; "
+        f"{flips4} attention-mask bits the plain run would set otherwise; "
         f"exact launches {exact_launches}")
-    del model32, out_e, out_p, masks
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del model32
 
     # --- (5) kernels on the main paths' inputs; timings ---
     serve_ms = cuda_ms(torch, lambda: serve(model, images), 3)
@@ -507,15 +543,18 @@ def main():
         return out
 
     def quantize_passes(fn, name, phase=5):
-        """The device kernels of one quantize call (profiler): each of its
-        two passes once, no fill; kept in the kernel's entry."""
+        """The device work of one quantize call: its two passes and no other
+        kernel (profiler names), and exactly two kernels and nothing else
+        on the card (the call captured as a CUDA graph); kept in the
+        kernel's entry."""
         split = kernel_split(torch, fn, 10)
         passes = {p: e for k, e in split.items() for p in ("absmax_kernel", "quantize_kernel")
                   if f"::{p}<" in k}
-        check(len(split) == len(passes) == 2
-              and all(e["launches_per_call"] == 1 for e in passes.values()),
-              f"{name}: kernels {split}")
+        nodes = graph_nodes(torch, fn)
+        check(len(split) == len(passes) == 2 and nodes == {"kernel": 2},
+              f"{name}: kernels {split}, graph nodes per call {nodes}")
         kernels[-1]["kernels_per_call"] = split
+        kernels[-1]["graph_nodes_per_call"] = nodes
         log(f"[{phase}] {name}: each call launches each of its two passes once and no fill: "
             + ", ".join(f"{p} {e['ms']:.4f} ms" for p, e in passes.items()))
 
@@ -825,11 +864,13 @@ def main():
                 "masked_attn": masked_flash_attention.launches,
                 "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
 
-    def score(what, env, dtype="bf16", capture=False, work_dir=None):
-        """One run of ``pairnet_torch.tools.test.main`` with the environment
-        ``env`` (on the checkpoint of ``work_dir`` if given, else random
-        weights): its metrics after the key-set and finiteness checks, and
-        the kernel launches of the run per forward."""
+    def score(what, env, dtype="bf16", capture=False, work_dir=None, config=SCORE_CONFIG,
+              extra=(), split_opts=SCORE_SPLIT):
+        """One run of ``pairnet_torch.tools.test.main`` on ``config`` and the
+        split of ``split_opts`` with the environment ``env`` (on the
+        checkpoint of ``work_dir`` if given, else random weights) and the
+        ``extra`` arguments: its metrics after the key-set and finiteness
+        checks, and the kernel launches of the run per forward."""
         saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN")}
         os.environ.update(env)
         cli.make_apply_fn = counting_apply_fn
@@ -845,9 +886,9 @@ def main():
         forwards[0] = 0
         count_plain_calls(True)
         try:
-            metrics = cli.main([SCORE_CONFIG, *([work_dir] if work_dir else []), "--eval", what,
+            metrics = cli.main([config, *([work_dir] if work_dir else []), "--eval", what,
                                 "--batch-size", str(BATCH), "--dtype", dtype, "--device",
-                                DEVICE, "--cfg-options", *SCORE_SPLIT])
+                                DEVICE, *extra, "--cfg-options", *split_opts])
             torch.cuda.synchronize()
         finally:
             count_plain_calls(False)
@@ -1163,6 +1204,267 @@ def main():
         f"9's, finite; the loader alone: {train_loader_s:.3f} s for the epoch's {n_batches} "
         f"batches ({train_loader_s / n_batches / s_step:.3f} of a step's time)")
 
+    # --- (14) serving Pair-Net Swin-B at full width, bf16, int4 ---
+    from pairnet_torch.bench import device_profile, stage_ms
+    from pairnet_torch.data import png
+    from pairnet_torch.models.backbones.swin import WindowMSA
+    from pairnet_torch.models.frameworks.psgtr import build_model
+    from pairnet_torch.tools import vis_results
+
+    def int4_counts():
+        return {"int4_quantize": int4_quantize.launches, "int4_gather": int4_gather.launches,
+                "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
+
+    int4_serving = {"int4_quantize": 6, "int4_gather": 6, "deform_attn_exact": 0, "plain": {}}
+
+    def check_served(out, preds, n, what):
+        for key, shape in {"cls": (n, 100, 134), "rel": (n, 100, 56), "importance": (n, 100, 100),
+                           "sub_pos": (n, 100), "obj_pos": (n, 100)}.items():
+            check(tuple(out[key].shape) == shape, f"{what}: {key} shape {tuple(out[key].shape)}")
+        for key in ("cls", "mask", "rel", "importance", "queries"):
+            check(bool(torch.isfinite(out[key].float()).all()), f"{what}: {key} finite")
+        check(bool(((out["sub_pos"] >= 0) & (out["sub_pos"] < 100) & (out["obj_pos"] >= 0)
+                    & (out["obj_pos"] < 100)).all()), f"{what}: pair indices")
+        check(len(preds) == n and all(tuple(pr.labels.shape) == (200,) for pr in preds),
+              f"{what}: 100 pairs per image")
+
+    model_s = perturb_deform_kernels(flagship(device=dev, dtype=torch.bfloat16, seed=0,
+                                              backbone="swinb"))
+    set_deform_impl(model_s, "int4")
+    g = torch.Generator(device=dev).manual_seed(1)
+    images_s = torch.randn((B, *IMG, 3), generator=g, device=dev).to(torch.bfloat16)
+    layers_mod.ms_deform_attn = capturing
+    serve(model_s, images_s)  # warm-up; captures the first encoder layer's inputs
+    layers_mod.ms_deform_attn = orig_msda
+    torch.cuda.synchronize()
+    reset_launches()
+    count_plain_calls(True)
+    out, preds = serve(model_s, images_s)
+    torch.cuda.synchronize()
+    count_plain_calls(False)
+    swin_serving_launches = int4_counts()
+    check(swin_serving_launches == int4_serving,
+          f"Swin-B serving launches {swin_serving_launches}")
+    check_served(out, preds, B, "Swin-B serving")
+    # the int4 kernels again on the inputs this path gave them
+    v, lc, wt = captured[("int4", torch.bfloat16)]
+    codes, scales = int4_quantize(v, SHAPES)
+    compare_quantize((codes, scales), int4_quantize_plain(v, SHAPES))
+    swin_gather_err = compare_gather(int4_gather(codes, scales, SHAPES, lc, wt),
+                                     int4_gather_plain(codes, scales, SHAPES, lc, wt))
+    del v, lc, wt, codes, scales, out, preds
+    captured.clear()
+    swin_ms = cuda_ms(torch, lambda: serve(model_s, images_s), 3)
+    swin_stages = stage_ms(model_s, images_s)
+    # the backbone alone: its kernels by the profiler, and the window
+    # attention (WindowMSA: qkv, scores, bias and mask, softmax, AV, proj)
+    # as a profiler scope
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x_nchw = images_s.permute(0, 3, 1, 2).contiguous()
+
+    def backbone():
+        with torch.inference_mode():
+            model_s.backbone(x_nchw)
+
+    bb_prof = device_profile(backbone, top=10_000)
+    orig_wmsa = WindowMSA.forward
+
+    def scoped_wmsa(self, *a, **k):
+        with record_function("swin_window_attention"):
+            return orig_wmsa(self, *a, **k)
+
+    WindowMSA.forward = scoped_wmsa
+    try:
+        backbone()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            backbone()
+            torch.cuda.synchronize()
+    finally:
+        WindowMSA.forward = orig_wmsa
+    # the scope's device time: the kernels launched inside it (None if the
+    # profiler attributes none to it)
+    wmsa_ms = max((getattr(e, "device_time_total", 0) or 0 for e in prof.key_averages()
+                   if e.key == "swin_window_attention"), default=0) / 1e3 or None
+    kinds = collections.Counter()  # the backbone's kernel ms by kind of kernel
+    for row in bb_prof["top"]:
+        name = row["name"].lower()
+        kinds["conv" if "conv" in name or "fprop" in name
+              else "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass"))
+              else "softmax" if "softmax" in name
+              else "layer_norm" if "layer_norm" in name
+              else "copies, rolls and casts" if any(w in name for w in ("copy", "roll", "cat"))
+              else "other elementwise"] += row["ms"]
+    wmsa_share = None if wmsa_ms is None else wmsa_ms / bb_prof["kernel_ms"]
+    swin_img_s = B * 1000.0 / swin_ms
+    log(f"[14] Swin-B serving batch {B} bf16 int4 at {IMG[0]}x{IMG[1]}: launches "
+        f"{swin_serving_launches}; outputs finite, 100 pairs per image; int4 kernels on this "
+        f"path's inputs: codes+scales bit-equal, gather max|d| {swin_gather_err:.3g} within 1 "
+        f"bf16 ulp; {swin_ms:.2f} ms per batch = {swin_img_s:.2f} img/s; stage ms "
+        f"{ {k: round(v, 3) for k, v in swin_stages.items()} }; backbone kernels "
+        f"{bb_prof['kernel_ms']:.2f} ms in {bb_prof['kernels_launched']} launches, by kind "
+        f"{ {k: round(v, 3) for k, v in kinds.items()} }; window attention (profiler scope) "
+        f"{wmsa_ms} ms = {wmsa_share} of the backbone's kernel time (a note)")
+    del model_s, x_nchw, prof
+    torch.cuda.empty_cache()
+
+    # --- (15) f32 Swin-B forward: exact kernel vs plain MSDA ---
+    model32 = perturb_deform_kernels(flagship(device=dev, dtype=torch.float32, seed=0,
+                                              backbone="swinb"))
+    swin_err, swin_decided, flips15, swin_exact = exact_vs_plain(model32, images_s[:1].float())
+    log(f"[15] Swin-B f32 batch 1, exact kernel vs plain MSDA (TF32 off): max|d| "
+        f"{ {k: f'{v:.3g}' for k, v in swin_err.items()} } (tol {TOL_FORWARD_REL} x "
+        f"max(1, max|plain|)); pair indices equal at {swin_decided}/100 decided ranks; "
+        f"{flips15} attention-mask bits the plain run would set otherwise; exact launches "
+        f"{swin_exact}")
+    del model32
+    torch.cuda.empty_cache()
+
+    # --- (16) score Swin-B with the CLI, save the predictions, visualise them ---
+    work = tempfile.mkdtemp(prefix="chip_smoke_vis_")
+    try:
+        # phase 9's split with PSG's 133 class and 56 predicate names (its
+        # own 7 and 5 first), so that every label the model predicts has a
+        # name to draw: the same images and annotations
+        named = os.path.join(work, "split")
+        root = os.path.normpath(split.img_prefix)
+        os.makedirs(named)
+        for entry in os.listdir(root):
+            if entry != "psg.json":
+                os.symlink(os.path.join(root, entry), os.path.join(named, entry))
+        with open(os.path.join(root, "psg.json")) as f:
+            ann = json.load(f)
+        n_names = len(ann["thing_classes"]) + len(ann["stuff_classes"])
+        ann["stuff_classes"] += [f"class_{i}" for i in range(n_names, 133)]
+        ann["predicate_classes"] += [f"predicate_{i}"
+                                     for i in range(len(ann["predicate_classes"]), 56)]
+        with open(os.path.join(named, "psg.json"), "w") as f:
+            json.dump(ann, f)
+        named_opts = (f"data.dataset.data_root={named}",)
+        pkl = os.path.join(work, "results.pkl")
+        swin_metrics, _, swin_per_fwd = score("sgdet", {}, config=SWIN_CONFIG,
+                                              extra=["--save-results", pkl], split_opts=named_opts)
+        check(swin_per_fwd == int4_expect, f"Swin-B scoring launches per forward {swin_per_fwd}")
+        viz = os.path.join(work, "viz")
+        t0 = time.perf_counter()
+        n_vis = vis_results.main([SWIN_CONFIG, pkl, "--out-dir", viz, "--cfg-options",
+                                  *named_opts])
+        vis_s = time.perf_counter() - t0
+        check(n_vis == SCORE_IMAGES, f"{n_vis} visualisations")
+        widths = collections.Counter()
+        for i, rec in enumerate(split.data[:n_vis]):
+            path = os.path.join(viz, f"{i:06d}.png")
+            pic = png.read(path)
+            Wi, Hi = rec.width, rec.height
+            check(pic.shape in ((Hi, 3 * Wi + Hi, 3), (Hi, 2 * Wi + Hi, 3)),
+                  f"{path}: shape {pic.shape} for a {Hi}x{Wi} image")
+            widths["3W + H" if pic.shape[1] == 3 * Wi + Hi else "2W + H"] += 1
+            for ext in (".dot", ".triplets.txt"):
+                check(os.path.getsize(path + ext) > 0, f"{path}{ext} empty")
+        check("PIL" not in sys.modules, "PIL was imported")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[16] scored {os.path.relpath(SWIN_CONFIG)} on phase 9's split (PSG's 133 class and "
+        f"56 predicate names) with --save-results "
+        f"(the numpy oracle): sgdet {swin_metrics['sgdet_images_per_s']} img/s, key set as "
+        f"phase 9's, finite; launches per forward {swin_per_fwd}; vis_results wrote {n_vis} "
+        f"PNGs ({dict(widths)}) with .dot and .triplets.txt in {vis_s:.2f} s; PIL not loaded")
+
+    # --- (17) train Swin-B with the CLI ---
+    swin_cfg = load_config(SWIN_CONFIG)
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN",
+                                                  "PAIRNET_DEBUG_NANS")}
+    os.environ["PAIRNET_DEBUG_NANS"] = "1"
+    work = tempfile.mkdtemp(prefix="chip_smoke_swin_train_")
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        syncs0 = batched_hungarian.syncs
+        count_plain_calls(True)
+        try:
+            summary = train_cli.main([SWIN_CONFIG, "--work-dir", work, "--device", DEVICE,
+                                      "--max-epochs", "1", "--cfg-options", *SCORE_SPLIT])
+        finally:
+            count_plain_calls(False)
+        torch.cuda.synchronize()
+        got, steps = launches(), summary["steps"]
+        syncs = batched_hungarian.syncs - syncs0
+        want = {"deform_attn_exact": 6 * steps, "int4": 0, "deform_attn_bwd": {"f32": 6 * steps},
+                "hungarian": 2 * steps, "plain": {}}
+        check(steps == 4, f"Swin-B train CLI ran {steps} steps")
+        check(got == want, f"Swin-B train CLI launches {got}, expected {want}")
+        check(syncs == 0, f"Swin-B train CLI: the Hungarian synced with the host {syncs} times")
+        check(all(math.isfinite(v) for v in summary["last"].values()),
+              f"Swin-B train CLI losses {summary['last']}")
+        # the trained checkpoint against the CLI's seeded init
+        init = build_model(swin_cfg.model, device=dev, seed=swin_cfg.get("seed", 10086))
+        init = init.state_dict()
+        trained = torch.load(os.path.join(work, "ckpts", "epoch_1.pt"), map_location=dev,
+                             weights_only=True)["state"]["model"]
+        moved = {f"stage {st}": any(not torch.equal(trained[k], init[k]) for k in init
+                                    if k.startswith(f"backbone.stages.{st}."))
+                 for st in range(4)}
+        moved["relative_position_bias_table"] = any(
+            not torch.equal(trained[k], init[k]) for k in init
+            if k.endswith("relative_position_bias_table"))
+        check(all(moved.values()), f"Swin-B parameters moved: {moved}")
+        del init, trained
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    swin_s_step = summary["seconds"] / steps
+    swin_train = {"steps": steps, "s_per_step": swin_s_step,
+                  "launches_per_step": {k: (v / steps if isinstance(v, int) else
+                                            {i: n / steps for i, n in v.items()})
+                                        for k, v in got.items() if k != "plain"},
+                  "hungarian_host_syncs": syncs, "losses": summary["last"], "moved": moved}
+    log(f"[17] train CLI on {os.path.relpath(SWIN_CONFIG)}, {len(train_split)} train images, "
+        f"batch 2, f32: {steps} steps, {swin_s_step:.3f} s per step; launches per step "
+        f"{swin_train['launches_per_step']}; Hungarian host syncs {syncs}; losses finite; "
+        f"moved {moved}")
+
+    # --- (18) the other Pair-Net heads at full width ---
+    cfg_dir = os.path.dirname(SCORE_CONFIG)
+    head_cases = {
+        "attn": (os.path.join(cfg_dir, "pairnet_attn_mapper_r50_psg.py"), []),
+        "fc": (os.path.join(cfg_dir, "pairnet_fc_mapper_r50_psg.py"), []),
+        "direct": (os.path.join(cfg_dir, "pairnet_direct_r50_psg.py"), []),
+        "conv_small": (SCORE_CONFIG, ["model.bbox_head.mapper=conv_small"]),
+        "conv_base": (SCORE_CONFIG, ["model.bbox_head.mapper=conv_base"]),
+    }
+    images2 = images_s[:2]
+    heads = {}
+    for name, (path, opts) in head_cases.items():
+        hcfg = apply_overrides(load_config(path), opts)
+        model_h = perturb_deform_kernels(build_model(hcfg.model, device=dev).to(torch.bfloat16))
+        set_deform_impl(model_h, "int4")
+        serve(model_h, images2)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        count_plain_calls(True)
+        out, preds = serve(model_h, images2)
+        torch.cuda.synchronize()
+        count_plain_calls(False)
+        counts = int4_counts()
+        check(counts == int4_serving, f"{name} head serving launches {counts}")
+        check_served(out, preds, 2, f"{name} head")
+        heads[name] = {"config": os.path.relpath(path), "cfg_options": opts, "launches": counts,
+                       "ms_per_batch_of_2": cuda_ms(torch, lambda: serve(model_h, images2), 2)}
+        del model_h, out, preds
+    torch.cuda.empty_cache()
+    log(f"[18] heads at full width, batch 2 bf16 int4: "
+        + ", ".join(f"{n} {h['ms_per_batch_of_2']:.2f} ms" for n, h in heads.items())
+        + f"; launches per forward {int4_serving} each; outputs finite, 100 pairs per image")
+    del images_s, images2
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
                                   "ms_per_batch": serve_ms, "img_per_s": img_per_s}}))
@@ -1184,8 +1486,23 @@ def main():
         "config": os.path.relpath(SCORE_CONFIG), "train_images": len(train_split), "batch": 2,
         "compute_dtype": "f32", "runs": cli_runs, "loader_s_per_epoch": train_loader_s,
         "sgdet": cli_metrics}}))
+    print(json.dumps({"swin": {
+        "serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
+                    "ms_per_batch": swin_ms, "img_per_s": swin_img_s, "stage_ms": swin_stages,
+                    "launches": swin_serving_launches,
+                    "backbone_kernel_ms": bb_prof["kernel_ms"],
+                    "backbone_kernels_launched": bb_prof["kernels_launched"],
+                    "backbone_kernel_ms_by_kind": dict(kinds),
+                    "window_attention_ms": wmsa_ms,
+                    "window_attention_share_of_backbone": wmsa_share,
+                    "backbone_top_kernels": bb_prof["top"][:12]},
+        "f32_exact_vs_plain": {"max_abs_err": swin_err, "decided_ranks": swin_decided,
+                               "mask_bits_replayed": flips15, "exact_launches": swin_exact},
+        "scoring": {"config": os.path.relpath(SWIN_CONFIG), "metrics": swin_metrics,
+                    "launches_per_forward": swin_per_fwd, "vis_pngs": n_vis, "vis_s": vis_s},
+        "train_cli": swin_train, "heads": heads}}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
 
 

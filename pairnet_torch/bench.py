@@ -1,16 +1,18 @@
-"""Benchmarks of the port on one GPU: Pair-Net R-50 serving and training.
+"""Benchmarks of the port on one GPU: Pair-Net serving and training.
 
 Serving, the counterpart of ``bench.py::bench_eval``: the forward pass plus
 the post-processing (panoptic fusion and triplet ranking) of every image,
 at 800x1344, batch 8, every float parameter and buffer in bf16, the int4
-MSDA kernels. Training (``--train``), the counterpart of
-``bench.py::bench_train``: the full train step (forward, on-device targets,
-losses, backward, clip, AdamW) at 800x1344, batch 4, bf16 compute over f32
-masters, the exact MSDA kernels forward and backward, on the seeded batch
-of ``bench.py`` (24 segments, 40 relations, 12544 points). Timed with CUDA
-events; prints one JSON line. Needs a GPU::
+MSDA kernels, on Pair-Net R-50 or (``--model swinb``, the JAX bench's
+``BENCH_MODEL=swinb``) Pair-Net Swin-B. Training (``--train``), the
+counterpart of ``bench.py::bench_train``, which is R-50 only: the full
+train step (forward, on-device targets, losses, backward, clip, AdamW) at
+800x1344, batch 4, bf16 compute over f32 masters, the exact MSDA kernels
+forward and backward, on the seeded batch of ``bench.py`` (24 segments, 40
+relations, 12544 points). Timed with CUDA events; prints one JSON line.
+Needs a GPU::
 
-    python -m pairnet_torch.bench [--impl int4|exact] [--breakdown]
+    python -m pairnet_torch.bench [--model r50|swinb] [--impl int4|exact] [--breakdown]
     python -m pairnet_torch.bench --train [--breakdown]
 """
 
@@ -225,6 +227,8 @@ def train_main(breakdown: bool) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("r50", "swinb"), default="r50",
+                    help="serving backbone: ResNet-50 or Swin-B (training is R-50 only)")
     ap.add_argument("--impl", choices=("int4", "exact"), default="int4",
                     help="serving MSDA kernels: int4 (bf16 serving default) or exact")
     ap.add_argument("--train", action="store_true",
@@ -234,17 +238,20 @@ def main(argv=None) -> dict:
                          "profiler's kernel time")
     args = ap.parse_args(argv)
     if args.train:
+        if args.model != "r50":
+            ap.error("--train times Pair-Net R-50 only, as the JAX train bench")
         return train_main(args.breakdown)
 
     device = resolve_device(None)
     (H, W), B = IMAGE_HW, BATCH
-    model = perturb_deform_kernels(flagship(device=device, dtype=torch.bfloat16))
+    model = perturb_deform_kernels(flagship(device=device, dtype=torch.bfloat16,
+                                            backbone=args.model))
     set_deform_impl(model, args.impl)
     g = torch.Generator(device=device).manual_seed(1)
     images = torch.randn((B, H, W, 3), generator=g, device=device).to(torch.bfloat16)
     ms = time_serving(model, images, ITERS)
     result = {
-        "metric": f"images_per_sec_pairnet_r50_sgdet_e2e_{H}x{W}",
+        "metric": f"images_per_sec_pairnet_{args.model}_sgdet_e2e_{H}x{W}",
         "value": B * 1000.0 / ms,
         "unit": "img/s",
         "ms_per_batch": ms,

@@ -7,8 +7,8 @@ Counterpart of ``pairnet_tpu/evaluation/runner.py``:
   triplet ranking) -> :func:`canvas_resize` of the masks to the original
   resolution -> :func:`~pairnet_torch.evaluation.device_eval.device_eval_single`;
 * :func:`evaluate_model`: the numpy oracle (``sgg_eval.sgg_evaluate``) on
-  host predictions, mask upsampling as PIL's mode-F bilinear resize (needs
-  PIL);
+  host predictions, mask upsampling as PIL's mode-F bilinear resize
+  (reproduced in numpy);
 * :func:`evaluate_pq`: Panoptic Quality of the fused panoptic maps.
 
 ``apply_fn(images) -> output dict`` takes the loader's numpy image batch and
@@ -18,6 +18,8 @@ skipped.
 
 from __future__ import annotations
 
+import functools
+import math
 import pickle
 
 import numpy as np
@@ -27,20 +29,60 @@ from pairnet_torch.data.pipeline import Loader, PipelineConfig
 from pairnet_torch.evaluation.sgg_eval import SGGroundTruth, SGPrediction, sgg_evaluate
 
 
+@functools.lru_cache(maxsize=64)
+def _pil_bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's bilinear resampling taps of one axis (Pillow ``Resample.c``,
+    ``precompute_coeffs``): (out_size, k) source indices and float64
+    weights, zero past each output's last tap."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the bilinear filter's support is 1
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, ksize), np.int64)
+    weights = np.zeros((out_size, ksize), np.float64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)  # int() truncates, as C's cast
+        n = min(int(center + support + 0.5), in_size) - xmin
+        ss = 1.0 / filterscale
+        w = [max(0.0, 1.0 - abs((x + xmin - center + 0.5) * ss)) for x in range(n)]
+        total = 0.0
+        for v in w:
+            total += v
+        idx[xx, :n] = np.arange(xmin, xmin + n)
+        weights[xx, :n] = [v / total for v in w] if total != 0.0 else w
+    return idx, weights
+
+
+def _resample_axis(m: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
+    """One pass of PIL's float resampling along ``axis`` (1 or 2) of (n, h,
+    w) float32 maps: the taps summed in order in float64, the result
+    rounded to float32."""
+    idx, w = _pil_bilinear_taps(m.shape[axis], out_size)
+    acc = None
+    for t in range(idx.shape[1]):
+        if not w[:, t].any():  # adding zeros changes no sum: PIL's trailing empty taps
+            continue
+        wt = torch.from_numpy(w[:, t]).reshape((-1, 1) if axis == 1 else (1, -1))
+        term = m.index_select(axis, torch.from_numpy(idx[:, t])).double() * wt
+        acc = term if acc is None else acc.add_(term)
+    return acc.float()
+
+
+RESIZE_CHUNK = 16  # maps resized at a time: bounds the float64 temporaries
+
+
 def _resize_logits(mask_logits: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """(N, h, w) float -> (N, H, W) bilinear: PIL's mode-F resize, the
-    oracle's semantics. Needs PIL; the device engine does not."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("the numpy oracle engine resizes masks with PIL, which is not "
-                          "installed; use the device engine") from e
+    """(N, h, w) float -> (N, H, W) bilinear, bit for bit PIL's mode-F
+    ``resize((W, H), BILINEAR)`` (the oracle's semantics), without PIL: a
+    horizontal pass, then a vertical one, each rounded to float32."""
     H, W = out_hw
-    out = np.empty((mask_logits.shape[0], H, W), np.float32)
-    for i, m in enumerate(mask_logits):
-        out[i] = np.asarray(
-            Image.fromarray(m.astype(np.float32), mode="F").resize((W, H), Image.BILINEAR))
-    return out
+    m = torch.from_numpy(np.ascontiguousarray(mask_logits, np.float32))
+    out = torch.empty((m.shape[0], H, W), dtype=torch.float32)
+    for i in range(0, m.shape[0], RESIZE_CHUNK):
+        chunk = m[i:i + RESIZE_CHUNK]
+        out[i:i + RESIZE_CHUNK] = _resample_axis(_resample_axis(chunk, 2, W), 1, H)
+    return out.numpy()
 
 
 def _host(out: dict) -> dict:

@@ -32,26 +32,28 @@ def _not_ported(what: str):
 def build_model(cfg: Mapping[str, Any], device=None, seed: int = 0) -> PSGTr:
     """A detector from a model config node, with seeded weights
     (``flagship.init_weights``), in eval mode, on ``device`` (default CUDA).
-    Only ``PSGTr`` with a ``ResNet`` backbone and a ``PairNetHead`` (the
-    ``conv_tiny`` matrix learner) is ported; anything else raises."""
+    Ported: ``PSGTr`` with a ``ResNet`` or ``SwinTransformer`` backbone and
+    a ``PairNetHead`` (any of the five matrix learners, ``direct`` or not);
+    anything else raises."""
     from pairnet_torch.flagship import init_weights, resolve_device
     from pairnet_torch.models.backbones.resnet import ResNet
+    from pairnet_torch.models.backbones.swin import SwinTransformer
     from pairnet_torch.models.heads.pairnet_head import PairNetHead
 
+    backbones = {"ResNet": ResNet, "SwinTransformer": SwinTransformer}
     model_cfg = dict(cfg)
     if model_cfg.get("type") != "PSGTr" or "bbox_head" not in model_cfg:
         raise _not_ported(f"model type {model_cfg.get('type')!r}")
     bb = dict(model_cfg["backbone"])
-    if bb.pop("type") != "ResNet":
-        raise _not_ported(f"backbone {cfg['backbone']['type']!r}")
+    bb_type = bb.pop("type")
+    if bb_type not in backbones:
+        raise _not_ported(f"backbone {bb_type!r}")
     head = dict(model_cfg["bbox_head"])
     if head.pop("type") != "PairNetHead":
         raise _not_ported(f"head {cfg['bbox_head']['type']!r}")
-    if head.pop("mapper", "conv_tiny") != "conv_tiny" or head.pop("direct", False):
-        raise _not_ported(f"PairNetHead mapper {cfg['bbox_head'].get('mapper')!r} / direct")
     device = resolve_device(device)
     with torch.device("meta"):  # allocate nothing until the device is known
-        backbone = ResNet(**bb)
+        backbone = backbones[bb_type](**bb)
         model = PSGTr(backbone, PairNetHead(backbone.out_channels, **head))
     model = model.to_empty(device=device)
     init_weights(model, seed)

@@ -86,7 +86,9 @@ class MultiheadAttention(nn.Module):
     def forward(self, query, key, value, attn_mask=None):
         C, H = self.embed_dims, self.num_heads
         D = C // H
-        w, b = self.in_proj_weight, self.in_proj_bias
+        # in the query's type: flax promotes an f32 input against bf16 weights
+        # (the attention matrix learner's f32 affinity in bf16 serving)
+        w, b = self.in_proj_weight.to(query.dtype), self.in_proj_bias.to(query.dtype)
         q = F.linear(query, w[:C], b[:C])
         k = F.linear(key, w[C : 2 * C], b[C : 2 * C])
         v = F.linear(value, w[2 * C :], b[2 * C :])
@@ -101,8 +103,8 @@ class MultiheadAttention(nn.Module):
                 q.reshape(B * H, Lq, D), k.reshape(B * H, Lk, D), v.reshape(B * H, Lk, D),
                 attn_mask[:, 0], H,
             )
-            out = out.reshape(B, H, Lq, D).transpose(1, 2).to(value.dtype).reshape(B, Lq, C)
-            return self.out_proj(out)
+            out = out.reshape(B, H, Lq, D).transpose(1, 2).to(v.dtype).reshape(B, Lq, C)
+            return self._out_proj(out)
         # f32 products and output, as JAX's preferred_element_type=f32: a
         # bf16 matmul would round the logits to bf16 before the softmax
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(D))
@@ -110,7 +112,11 @@ class MultiheadAttention(nn.Module):
             logits = logits.masked_fill(attn_mask, -1e9)
         attn = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Lq, C)
-        return self.out_proj(out)
+        return self._out_proj(out)
+
+    def _out_proj(self, out):
+        p = self.out_proj
+        return F.linear(out, p.weight.to(out.dtype), p.bias.to(out.dtype))
 
 
 class AttnSlot(nn.Module):

@@ -98,26 +98,83 @@ def cuda_ms(torch, fn, iters, spin=False):
 
 def kernel_split(torch, fn, calls):
     """Each kernel (fills and copies included) that ``calls`` calls of
-    ``fn`` launch, by ``torch.profiler`` after 2 profiled warm-up calls,
-    the card synchronised after each call: its mean device ms per launch
-    and its launches per call."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    ``fn`` launch, by ``torch.profiler``'s device events after 2 warm-up
+    calls, the card synchronised after each call: its mean device ms per
+    launch and its launches per call. The profiler has lost one call's
+    kernel records in 10 (H100, torch 2.11), so the exact count of a call's
+    launches is :func:`graph_nodes`'s."""
+    from torch.profiler import ProfilerActivity, profile
 
-    warmup = 2
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=warmup, active=calls, repeat=1)) as prof:
-        for _ in range(warmup + calls):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
             fn()
             torch.cuda.synchronize()
-            prof.step()
-    split = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            split[e.key[:80]] = {"ms": us / 1e3 / e.count, "launches_per_call": e.count / calls}
-    return split
+    total_us, count = {}, {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            key = e.name[:80]
+            total_us[key] = total_us.get(key, 0.0) + e.time_range.elapsed_us()
+            count[key] = count.get(key, 0) + 1
+    return {key: {"ms": total_us[key] / 1e3 / n, "launches_per_call": n / calls}
+            for key, n in count.items()}
+
+
+# cudaGraphNodeType
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def _cudart(torch):
+    """The CUDA runtime library that PyTorch loaded."""
+    import ctypes
+    import glob
+    import os
+
+    root = os.path.dirname(torch.__file__)
+    for pattern in (os.path.join(root, "lib", "libcudart.so*"),
+                    os.path.join(root, "..", "nvidia", "cuda_runtime", "lib", "libcudart.so*")):
+        found = sorted(glob.glob(pattern))
+        if found:
+            return ctypes.CDLL(found[0])
+    raise FileNotFoundError(f"no libcudart beside torch ({root})")
+
+
+def graph_nodes(torch, fn):
+    """The operations one call of ``fn`` puts on the card, by type
+    (``{"kernel": n, "memset": n, ...}``): the call captured into a CUDA
+    graph on a side stream, after two calls on that stream so that its
+    per-stream state (the quantize's workspace) exists, and the graph's
+    nodes read from the CUDA runtime. Exact, where profiler records can be
+    lost."""
+    import collections
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    rt = _cudart(torch)
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    kinds = collections.Counter()
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        kinds[GRAPH_NODE_TYPES.get(t.value, f"type {t.value}")] += 1
+    return dict(kinds)
 
 
 def capture_inputs(torch, dev):

@@ -12,6 +12,8 @@ exact inverse of the JAX package's checkpoint converter
 * packed in_proj (3C, C) / (3C,)  <- q_proj/k_proj/v_proj kernels and biases
 * FrozenBatchNorm buffers         <- the ``constants`` collection
 * nn.Embedding weight             <- the flax parameter itself
+* Swin PatchMerging norm/reduction <- the JAX module's (ky, kx, c) rows of
+  4C, permuted into mmdet's ``nn.Unfold`` order (c, ky, kx)
 
 Every port parameter and buffer must be filled and every JAX leaf used;
 anything else raises. The ``--load-from`` warm start of the train CLI
@@ -27,11 +29,21 @@ import numpy as np
 import torch
 from torch import nn
 
+from pairnet_torch.models.backbones.swin import PatchMerging, WindowMSA
 from pairnet_torch.models.layers import FrozenBatchNorm, MultiheadAttention
 
 # torch module name -> flax module path, applied in order on the dotted name
 _E = r"(?=\.|$)"  # end of a name component
+_SWIN_BLOCK = r"^backbone\.stage(\d+)_block(\d+)"
 _RULES = [
+    (r"^backbone\.patch_embed\.projection" + _E, "backbone.patch_embed"),
+    (r"^backbone\.patch_embed\.norm" + _E, "backbone.patch_norm"),
+    (r"^backbone\.stages\.(\d+)\.blocks\.(\d+)" + _E, r"backbone.stage\1_block\2"),
+    (r"^backbone\.stages\.(\d+)\.downsample" + _E, r"backbone.merge\1"),
+    (r"^backbone\.norm(\d+)" + _E, r"backbone.out_norm\1"),
+    (_SWIN_BLOCK + r"\.attn\.w_msa" + _E, r"backbone.stage\1_block\2.attn"),
+    (_SWIN_BLOCK + r"\.ffn\.layers\.0\.0" + _E, r"backbone.stage\1_block\2.mlp_fc1"),
+    (_SWIN_BLOCK + r"\.ffn\.layers\.1" + _E, r"backbone.stage\1_block\2.mlp_fc2"),
     (r"^backbone\.layer(\d+)\.(\d+)\.downsample\.0" + _E, r"backbone.layer\1_\2.downsample_conv"),
     (r"^backbone\.layer(\d+)\.(\d+)\.downsample\.1" + _E, r"backbone.layer\1_\2.downsample_bn"),
     (r"^backbone\.layer(\d+)\.(\d+)" + _E, r"backbone.layer\1_\2"),
@@ -49,7 +61,7 @@ _RULES = [
     (r"\.ffns\.0\.layers\.1" + _E, ".ffn.fc2"),
     (r"^bbox_head\.(query_feat|query_embed|level_embed|cls_embed|mask_embed)" + _E,
      r"bbox_head.transformer_decoder.\1"),
-    (r"(mask_embed|_query_update)\.([024])" + _E,
+    (r"(mask_embed|_query_update|pair_embed)\.([024])" + _E,
      lambda m: f"{m.group(1)}.layers_{int(m.group(2)) // 2}"),
     (r"\.update_importance\.conv_layers\.(\d)\.0" + _E, r".update_importance.conv\1"),
 ]
@@ -91,6 +103,24 @@ def _module_leaves(module: nn.Module):
     elif isinstance(module, FrozenBatchNorm):
         for n in ("weight", "bias", "running_mean", "running_var"):
             yield n, "constants", n, None
+    elif isinstance(module, WindowMSA):
+        yield "relative_position_bias_table", "params", "relative_position_bias_table", None
+
+
+def merge_order(four_c: int) -> np.ndarray:
+    """For each of PatchMerging's 4C features in the port's (c, ky, kx)
+    order, its index in the JAX module's (ky, kx, c) order (the inverse of
+    ``convert_swin``'s ``tmap``)."""
+    j = np.arange(four_c)
+    return (j % 4) * (four_c // 4) + j // 4
+
+
+def _merge_leaves(module: PatchMerging):
+    """PatchMerging's tensors with the 4C axis permuted."""
+    order = merge_order(module.norm.normalized_shape[0])
+    yield "norm.weight", "params", ("norm", "scale"), lambda a: a[order]
+    yield "norm.bias", "params", ("norm", "bias"), lambda a: a[order]
+    yield "reduction.weight", "params", ("reduction", "kernel"), lambda a: a[order].T
 
 
 def tensor_leaves(model: nn.Module, prefix: str = ""):
@@ -99,9 +129,17 @@ def tensor_leaves(model: nn.Module, prefix: str = ""):
     layout). A packed attention in_proj is made of three leaves
     (q_proj, k_proj, v_proj); every other tensor of one."""
     T = lambda a: a.T  # noqa: E731
+    merges = []  # PatchMerging names: their children's tensors are yielded with them
     for mname, module in model.named_modules():
+        if any(mname.startswith(m + ".") for m in merges):
+            continue
         base = flax_path((prefix + mname).rstrip("."))
         dst_prefix = f"{mname}." if mname else ""
+        if isinstance(module, PatchMerging):
+            merges.append(mname)
+            for tname, col, leaf, fn in _merge_leaves(module):
+                yield (dst_prefix + tname, col, [base + leaf], lambda arrs, fn=fn: fn(arrs[0]))
+            continue
         if isinstance(module, MultiheadAttention):
             for tname, leaf, fn in (("in_proj_weight", "kernel", T),
                                     ("in_proj_bias", "bias", None)):

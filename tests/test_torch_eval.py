@@ -212,3 +212,18 @@ def test_device_engine_matches_numpy_oracle():
         for key in (f"sgdet_recall_R@{k}", f"sgdet_mean_recall_mR@{k}"):
             assert dev[key] == pytest.approx(ref[key], abs=1e-12), key
     assert 0 < dev["sgdet_recall_R@20"] < 1
+
+
+@pytest.mark.parametrize("hw,out_hw", [((200, 334), (800, 1333)), ((24, 32), (96, 128)),
+                                       ((40, 61), (23, 200)), ((333, 127), (41, 19)),
+                                       ((7, 7), (800, 3))])
+def test_resize_logits_is_pils_bilinear(hw, out_hw):
+    """The numpy oracle's mask upsampling equals PIL's mode-F bilinear
+    resize bit for bit, upsampling and downsampling, without PIL."""
+    from PIL import Image
+
+    maps = np.random.default_rng(sum(hw)).normal(size=(3, *hw)).astype(np.float32)
+    H, W = out_hw
+    want = np.stack([np.asarray(Image.fromarray(m, mode="F").resize((W, H), Image.BILINEAR))
+                     for m in maps])
+    np.testing.assert_array_equal(runner._resize_logits(maps, out_hw), want)

@@ -216,18 +216,19 @@ def test_build_model_equals_flagship(config, tiny):
         assert torch.equal(got[k], want[k]), k
 
 
-@pytest.mark.parametrize("change, what", [
-    ({"type": "SceneGraphTwoStage"}, "model type"),
-    ({"backbone": {"type": "SwinTransformer"}}, "backbone"),
-    ({"bbox_head": {"type": "PSGTrHead"}}, "head"),
-    ({"bbox_head": {"mapper": "attn"}}, "mapper"),
-])
-def test_build_model_raises_for_what_is_not_ported(change, what):
+@pytest.mark.parametrize("change, error, match", [
+    ({"type": "SceneGraphTwoStage"}, NotImplementedError, "model type.*ROADMAP"),
+    ({"backbone": {"type": "ResNeXt"}}, NotImplementedError, "backbone.*ROADMAP"),
+    ({"bbox_head": {"type": "PSGTrHead"}}, NotImplementedError, "head.*ROADMAP"),
+    # every matrix learner of the JAX package is ported: only an unknown one raises
+    ({"bbox_head": {"mapper": "conv_huge"}}, KeyError, "unknown matrix learner"),
+], ids=["change0-model type", "change1-backbone", "change2-head", "change3-mapper"])
+def test_build_model_raises_for_what_is_not_ported(change, error, match):
     from pairnet_torch.config import load_config
     from pairnet_torch.models.frameworks.psgtr import build_model
 
     model = load_config(TINY).model.merge(change)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+    with pytest.raises(error, match=match):
         build_model(model, device="cpu")
 
 

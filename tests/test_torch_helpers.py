@@ -177,3 +177,42 @@ def decided_ranks(values, k, tol):
     before = np.concatenate([[np.inf], gap[: k - 1]])
     after = gap[:k]
     return (before > tol) & (after > tol)
+
+
+def attention_mask_logits(port, images):
+    """The attention-mask logits the port's decoder consumed on ``images``
+    (NHWC numpy), one (B, Q, S) array per mask: the initial query's and
+    every layer output's but the last, taken at each layer's level. A bit
+    is masked where its logit is below 0 (sigmoid < 0.5)."""
+    import torch
+
+    head = port.bbox_head
+    dec = head.transformer_decoder
+    seen = {}
+    hooks = [
+        head.pixel_decoder.register_forward_hook(lambda m, i, o: seen.update(pix=o)),
+        dec.register_forward_hook(lambda m, i, o: seen.update(dec=o)),
+    ]
+    with torch.no_grad():
+        port(torch.tensor(images))
+        for h in hooks:
+            h.remove()
+        mask_features, ms_feats = seen["pix"]
+        q0 = head.query_feat.weight[None].expand(images.shape[0], -1, -1)
+        # the initial query and the output of every layer but the last
+        queries = [q0] + list(seen["dec"]["query_history"][:-1])
+        logits = []
+        for i, q in enumerate(queries):
+            hw = ms_feats[i % len(ms_feats)].shape[-2:]
+            small = torch.nn.functional.interpolate(
+                mask_features.float(), size=tuple(hw), mode="bilinear", align_corners=False
+            ).flatten(2).transpose(1, 2)
+            am = torch.einsum("bqc,bsc->bqs", dec._mask_embed(q, head.mask_embed), small)
+            logits.append(am.numpy())
+    return logits
+
+
+def attention_mask_margin(port, images):
+    """The least |logit| of :func:`attention_mask_logits`: every mask bit
+    is decided by a margin of this size."""
+    return min(float(np.abs(am).min()) for am in attention_mask_logits(port, images))

@@ -16,7 +16,7 @@ from __graft_entry__ import _flagship
 from pairnet_tpu.models.heads.pairnet_inference import panoptic_fusion as j_fusion
 from pairnet_tpu.models.heads.pairnet_inference import pairnet_postprocess as j_post
 from pairnet_tpu.utils.torch_convert import convert_pairnet_checkpoint
-from test_torch_helpers import decided_ranks, perturb
+from test_torch_helpers import attention_mask_margin, decided_ranks, perturb
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -81,29 +81,7 @@ def test_attention_masks_have_margin(pair):
     same contraction at full resolution), so no mask bit can differ."""
     ref, out, _, port, images = pair
     gap = np.abs(out["mask"] - ref["mask"]).max()
-    head = port.bbox_head
-    dec = head.transformer_decoder
-    seen = {}
-    hooks = [
-        head.pixel_decoder.register_forward_hook(lambda m, i, o: seen.update(pix=o)),
-        dec.register_forward_hook(lambda m, i, o: seen.update(dec=o)),
-    ]
-    with torch.no_grad():
-        port(torch.tensor(images))
-        for h in hooks:
-            h.remove()
-        mask_features, ms_feats = seen["pix"]
-        q0 = head.query_feat.weight[None].expand(images.shape[0], -1, -1)
-        # the initial query and the output of every layer but the last
-        queries = [q0] + list(seen["dec"]["query_history"][:-1])
-        margin = np.inf
-        for i, q in enumerate(queries):
-            hw = ms_feats[i % len(ms_feats)].shape[-2:]
-            small = torch.nn.functional.interpolate(
-                mask_features.float(), size=tuple(hw), mode="bilinear", align_corners=False
-            ).flatten(2).transpose(1, 2)
-            am = torch.einsum("bqc,bsc->bqs", dec._mask_embed(q, head.mask_embed), small)
-            margin = min(margin, float(am.abs().min()))
+    margin = attention_mask_margin(port, images)
     assert margin > 10 * gap, (margin, gap)
 
 

@@ -58,11 +58,27 @@ def test_port_imports_no_pil_at_module_level(path):
         assert not any(n.split(".")[0] == "PIL" for n in names), f"{path}:{node.lineno}"
 
 
+NO_PIL = ("pairnet_torch/utils/visualize.py", "pairnet_torch/tools/vis_results.py",
+          "pairnet_torch/evaluation/runner.py")
+
+
+@pytest.mark.parametrize("rel", NO_PIL)
+def test_vis_and_scoring_import_no_pil_anywhere(rel):
+    """The vis CLI and the scoring oracle draw, write and resize without
+    PIL, inside functions too."""
+    path = ROOT / rel
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        assert not any(n.split(".")[0] == "PIL" for n in names), f"{rel}:{node.lineno}"
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys, pairnet_torch.flagship, pairnet_torch.bench, pairnet_torch.tools.test, "
         "pairnet_torch.evaluation.runner, pairnet_torch.train.builder, "
-        "pairnet_torch.tools.train, pairnet_torch.data.sg; "
+        "pairnet_torch.tools.train, pairnet_torch.data.sg, pairnet_torch.tools.vis_results, "
+        "pairnet_torch.utils.visualize, pairnet_torch.models.backbones.swin; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
     )
@@ -76,6 +92,21 @@ def test_flagship_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flagship_mod.resolve_device("cuda")
     assert flagship_mod.resolve_device("cpu").type == "cpu"
+
+
+def test_swin_flagship_and_build_model_default_to_cuda(monkeypatch):
+    from pairnet_torch.config import load_config
+    from pairnet_torch.models.frameworks.psgtr import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(str(ROOT / "configs" / "pairnet" / "pairnet_direct_r50_psg.py"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flagship_mod.flagship(tiny=True, backbone="swinb")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg.model)
+    assert flagship_mod.flagship(tiny=True, backbone="swinb", device="cpu").training is False
+    with pytest.raises(ValueError, match="backbone"):
+        flagship_mod.flagship(tiny=True, backbone="r101", device="cpu")
 
 
 def _launches():
