@@ -97,10 +97,37 @@ result line then):
      ``model.bbox_head.mapper=...``, built by ``build_model`` at full width,
      serve a batch of 2 bf16 through int4: 6 + 6 launches, no plain call,
      finite outputs, 100 pairs per image.
+Phases 19-21 use, besides this process, a group of 2 spawned ranks on the
+same card (gloo: NCCL takes one rank a card; a test harness, never a path
+the package picks), started at phase 19 and stopped after phase 21.
+ 19. ``pairnet_torch.tools.train.main`` under NCCL at world size 1 in the
+     environment ``torchrun`` gives (default device ``cuda:LOCAL_RANK``),
+     phase 13's setup for one epoch: its losses within ``TOL_TRAIN_REL`` of
+     phase 13's, one checkpoint, 6 + 6 MSDA and 2 Hungarian launches a
+     step. Then one f32 step of full-width R-50 (TF32 off, dropout off) on
+     the 2 ranks, batch 1 each, against this process's world-1 step of the
+     global batch of 2, whose attention masks, pair picks and targets the
+     ranks replay for their rows: the losses and every MSDA gradient within
+     phase 7's tolerance, the parameters equal on both ranks after the
+     step. Then 3 bf16 steps, batch 2 a rank: s per step and the coalesced
+     gradient all-reduce's ms (two ranks on one card: no scaling measured).
+ 20. ``pairnet_torch.tools.test.main`` under NCCL at world size 1: sgdet and
+     PQ equal to phase 9's; then on the 2 ranks, each scoring 8 of the 16
+     images: within 1e-6 of phase 9's on each rank, 6 + 6 int4 launches a
+     rank. Random weights score 0, so then the same runners on head
+     outputs planted from the split's GT (``planted_scoring``): sgdet R@20
+     and PQ above 0, rank 0's shard alone more than 1e-3 off the whole, and
+     the 2 ranks within 1e-6 of world 1.
+ 21. the full-width 6-layer encoder (f32, TF32 off) on the 800x1344 levels
+     (S = 22050) split over the 2 ranks through
+     ``parallel/spatial.py::sequence_parallel_encoder``: within
+     ``TOL_FORWARD_REL`` of the sequential stack in this process; each rank
+     6 exact launches at Q = S / 2 local queries against the gathered
+     plane, and the exact kernel against its plain version at that Q.
 Then one JSON line of kernels, one of serving, one of training, one of
 evaluation, one of the train CLI, one of Swin-B and the other heads
-(``swin``), the card's name and power limit, and the final line
-{"ok": true, "device": {...}}.
+(``swin``), one of phases 19-21 (``parallel``), the card's name and power
+limit, and the final line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -113,6 +140,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 IMG = (800, 1344)
@@ -238,6 +266,658 @@ def decided_ranks(values, k, tol):
     gap = (s[:-1] - s[1:]).abs()
     before = torch.cat([gap.new_tensor([float("inf")]), gap[: k - 1]])
     return (before > tol) & (gap[:k] > tol)
+
+
+# phases 19-21: a group of RANKS processes on cuda:0. NCCL takes one rank
+# a card, so the group runs gloo, which takes CUDA tensors for every
+# collective the port issues (a test harness: the package never picks a
+# backend other than NCCL for CUDA)
+RANKS = 2
+RANK_TIMEOUT_S = 300
+SP_SEED = 5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class launcher_env:
+    """The environment ``torchrun --nproc_per_node 1`` gives its process:
+    world size 1, rank 0, local rank 0 and a rendezvous on localhost."""
+
+    def __enter__(self):
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        self.saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count."""
+    from pairnet_torch.ops.deform_attn_bwd import deform_attn_bwd
+    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops.deform_attn_int4 import int4_gather, int4_quantize
+    from pairnet_torch.ops.hungarian import batched_hungarian
+
+    return {"deform_attn_exact": deform_attn_exact.launches,
+            "deform_attn_bwd": dict(deform_attn_bwd.launches),
+            "int4_quantize": int4_quantize.launches, "int4_gather": int4_gather.launches,
+            "hungarian": batched_hungarian.launches}
+
+
+def zero_launch_counts():
+    from pairnet_torch.ops.deform_attn_bwd import deform_attn_bwd
+    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops.deform_attn_int4 import int4_gather, int4_quantize
+    from pairnet_torch.ops.hungarian import batched_hungarian
+
+    deform_attn_exact.launches = int4_quantize.launches = int4_gather.launches = 0
+    batched_hungarian.launches = 0
+    deform_attn_bwd.launches.clear()
+
+
+def no_dropout(model):
+    """The Relation Fusion FFN's dropout off: ranks draw their own masks."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def step_replays(model):
+    """Replays of a train step's attention masks and pair picks on
+    ``model`` and of its targets (``trainer.pairnet_targets``): a world-1
+    run records them, each rank replays its rows."""
+    from pairnet_torch.train import trainer as trainer_mod
+
+    dec, head = model.bbox_head.transformer_decoder, model.bbox_head
+    masks = Replay(lambda *a: type(dec).attn_mask_small(dec, *a),
+                   lambda own, kept: int((own != kept).sum()))
+    pairs = Replay(lambda imp: type(head).pair_topk(head, imp),
+                   lambda own, kept: sum(int((o != k).sum()) for o, k in zip(own, kept)))
+    fields = ("r_labels", "r_weights", "sub_ids", "obj_ids", "gt_importance", "query2gt")
+    targets = Replay(trainer_mod.pairnet_targets, lambda own, kept: sum(
+        int((getattr(own, f) != getattr(kept, f)).sum()) for f in fields))
+    dec.attn_mask_small, head.pair_topk = masks, pairs
+    return {"masks": masks, "pairs": pairs, "targets": targets}
+
+
+def batch_rows(x, rows):
+    """Rows ``rows`` of a recorded value: a tensor, or a (named) tuple of them."""
+    if torch.is_tensor(x):
+        return x[rows]
+    vals = [batch_rows(v, rows) for v in x]
+    return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+
+
+def encoder_stack(dev, seq_group=None):
+    """The pixel decoder's 6 encoder layers at full width (256 channels, 8
+    heads, 3 levels, 4 points, FFN 1024), seeded, deformable kernels
+    perturbed; split over ``seq_group`` when given."""
+    from pairnet_torch.flagship import init_weights, perturb_deform_kernels
+    from pairnet_torch.models.necks.pixel_decoder import DeformableEncoderLayer
+
+    with torch.device("meta"):
+        stack = torch.nn.ModuleList([DeformableEncoderLayer(256, H, len(SHAPES), P, 1024,
+                                                            seq_group=seq_group)
+                                     for _ in range(6)])
+    stack = stack.to_empty(device=dev)
+    init_weights(stack, SP_SEED)
+    return perturb_deform_kernels(stack, SP_SEED)
+
+
+def encoder_inputs(dev):
+    from pairnet_torch.models.layers import encoder_reference_points
+
+    S = sum(h * w for h, w in SHAPES)
+    g = torch.Generator(device=dev).manual_seed(SP_SEED)
+    tokens = torch.randn((1, S, 256), generator=g, device=dev)
+    pos = torch.randn((1, S, 256), generator=g, device=dev) * 0.1
+    return tokens, pos, encoder_reference_points(SHAPES, device=dev)[None]
+
+
+def rank_dp_step(rank, world, replay_path, batch_size):
+    """One f32 step (TF32 off) of full-width R-50 on this rank's rows of the
+    global batch, replaying the world-1 run's masks, pair picks and targets
+    of those rows: the global losses, the MSDA gradients, whether the
+    parameters equal rank 0's after the step, the replayed differences and
+    the launches."""
+    import torch.distributed as dist
+
+    from pairnet_torch.bench import train_batch, train_setup
+    from pairnet_torch.models.layers import MSDeformAttention
+    from pairnet_torch.parallel.mesh import rank_rows
+    from pairnet_torch.train import trainer as trainer_mod
+    from pairnet_torch.train.trainer import to_device
+
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kept = torch.load(replay_path, map_location=dev, weights_only=False)
+    model, state, step = train_setup(dev, compute_dtype=None)
+    no_dropout(model)
+    replays = step_replays(model)
+    rows = slice(rank * batch_size, (rank + 1) * batch_size)
+    for name, r in replays.items():
+        r.kept = [batch_rows(x, rows) for x in kept[name]]
+        r.start_replay()
+    batch = to_device(rank_rows(train_batch(batch_size * world, IMG), rank, world), dev)
+    orig = trainer_mod.pairnet_targets
+    trainer_mod.pairnet_targets = replays["targets"]
+    zero_launch_counts()
+    try:
+        metrics = step(state, batch)
+    finally:
+        trainer_mod.pairnet_targets = orig
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0)
+    grads = {f"{n}.{pn}": p.grad.detach().cpu() for n, m in model.named_modules()
+             if isinstance(m, MSDeformAttention) for pn, p in m.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "params_equal_rank0": bool(torch.equal(flat, ref)), "launches": launches,
+            "replayed": {k: r.flips for k, r in replays.items()}}
+
+
+def rank_bf16_steps(rank, world, batch_size, steps):
+    """bf16 training at ``batch_size`` a rank: a warm-up, then ``steps``
+    steps timed (host clock, synchronised); then the coalesced gradient
+    all-reduce alone, timed three times."""
+    from pairnet_torch.bench import train_batch, train_setup
+    from pairnet_torch.parallel.mesh import all_reduce_coalesced, rank_rows
+    from pairnet_torch.train.trainer import to_device
+
+    dev = torch.device(DEVICE)
+    model, state, step = train_setup(dev)
+    batch = to_device(rank_rows(train_batch(batch_size * world, IMG), rank, world), dev)
+    step(state, batch)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / steps
+    launches = launch_counts()
+    grads = [p.grad for p in model.parameters()]
+    ar_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_coalesced(grads)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"s_per_step": s_per_step, "all_reduce_ms": ar_ms, "launches": launches,
+            "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
+            "losses": [{k: float(v) for k, v in m.items()} for m in metrics]}
+
+
+def rank_score(rank, world, config, split_opts, batch_size):
+    """``pairnet_torch.tools.test.main`` (sgdet, then PQ) on this rank's
+    shard of the split, bf16, the default int4 MSDA."""
+    from pairnet_torch.tools import test as cli
+
+    out = {}
+    for what in ("sgdet", "PQ"):
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        metrics = cli.main([config, "--eval", what, "--batch-size", str(batch_size), "--dtype",
+                            "bf16", "--device", DEVICE, "--cfg-options", *split_opts])
+        torch.cuda.synchronize()
+        out[what] = {"metrics": metrics, "launches": launch_counts()}
+    return out
+
+
+def planted_scoring(rank=0, world=1, shard_of=None):
+    """sgdet (the device engine) and PQ of phase 9's test split with head
+    outputs planted from each image's ground truth in place of a model's,
+    so that the metrics score above 0 and differ between images (random
+    weights score 0 everywhere, which a dropped or doubled image leaves
+    at 0). Per image, seeded by its index: two of every three GT relations
+    (from a per-image offset) as a pair with the GT labels, predicate and
+    masks (+-8 logits), the rest random; the fusion queries carry the GT
+    segments, every fourth dropped. Every process plants the whole split
+    (keyed by the hash of the loader's image); the runners then score this
+    rank's shard and merge over the group. ``shard_of=(r, n)`` scores
+    shard r of n alone at world size 1."""
+    import hashlib
+
+    from pairnet_torch.config import apply_overrides, load_config
+    from pairnet_torch.data.pipeline import Loader
+    from pairnet_torch.data.sg import shard
+    from pairnet_torch.evaluation import runner
+    from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
+    from pairnet_torch.train.builder import build_dataset, build_pipeline_cfg
+
+    cfg = apply_overrides(load_config(SCORE_CONFIG), list(SCORE_SPLIT))
+    split = build_dataset(cfg, "test")
+    pipe_cfg = build_pipeline_cfg(cfg, train=False)
+    C1, NR, K, Q = cfg.num_object_classes + 1, cfg.num_relation_classes, 10, 8
+
+    def key(image):
+        return hashlib.sha1(np.ascontiguousarray(image).tobytes()).hexdigest()
+
+    planted = {}
+    for i, batch in enumerate(Loader(split, pipe_cfg, 1)):
+        rng = np.random.default_rng([4, i])
+        _, _, h4, w4 = batch["gt_masks"].shape
+        out = {"sub": rng.normal(size=(1, K, C1)), "obj": rng.normal(size=(1, K, C1)),
+               "rel": rng.normal(size=(1, K, NR)),
+               "sub_seg": rng.normal(size=(1, K, h4, w4)) - 4,
+               "obj_seg": rng.normal(size=(1, K, h4, w4)) - 4,
+               "cls": rng.normal(size=(1, Q, C1)), "mask": rng.normal(size=(1, Q, h4, w4))}
+        gm, gl = batch["gt_masks"][0], batch["gt_labels"][0]
+        skip = int(rng.integers(3))
+        for j, (s_, o_, p_) in enumerate(batch["gt_rels"][0][batch["rel_valid"][0]][:K]):
+            if j % 3 == skip:
+                continue
+            out["sub"][0, j, gl[s_]] += 10
+            out["obj"][0, j, gl[o_]] += 10
+            out["rel"][0, j, p_ - 1] += 10
+            out["sub_seg"][0, j] = np.where(gm[s_], 8.0, -8.0)
+            out["obj_seg"][0, j] = np.where(gm[o_], 8.0, -8.0)
+        for q in range(min(Q, int(batch["gt_valid"][0].sum()))):
+            if q % 4 != 3:
+                out["cls"][0, q, gl[q]] += 10
+                out["mask"][0, q] = np.where(gm[q], 8.0, -8.0)
+        planted[key(batch["image"][0])] = {k: v.astype(np.float32) for k, v in out.items()}
+    pad = next(iter(planted.values()))  # a padded row of a batch (not scored)
+
+    def apply_fn(images):
+        outs = [planted.get(key(img), pad) for img in images]
+        return {k: torch.from_numpy(np.concatenate([o[k] for o in outs])).to(DEVICE)
+                for k in outs[0]}
+
+    if shard_of is not None:
+        split = shard(split, *shard_of)
+    num_things = cfg.evaluation.num_things
+    return {"sgdet": runner.evaluate_model_device(
+                apply_fn, split, pipe_cfg, batch_size=BATCH, num_predicates=NR,
+                num_things=num_things, iou_thr=cfg.evaluation.get("iou_thr", 0.5)),
+            "PQ": runner.evaluate_pq(apply_fn, pairnet_postprocess, split, pipe_cfg,
+                                     batch_size=BATCH, num_classes=cfg.num_object_classes,
+                                     num_things=num_things)}
+
+
+def rank_sp_encoder(rank, world):
+    """The full-width encoder stack with its tokens split over the group, f32
+    (TF32 off): the output (rank 0 returns it), the launches, and the exact
+    kernel against its plain version on layer 0's inputs at the local
+    queries."""
+    import torch.distributed as dist
+
+    from pairnet_torch.models import layers as layers_mod
+    from pairnet_torch.ops.deform_attn import ms_deform_attn_plain
+    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.parallel.spatial import sequence_parallel_encoder
+
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = dist.group.WORLD
+    stack = encoder_stack(dev, seq_group=group)
+    tokens, pos, ref = encoder_inputs(dev)
+    captured = []
+    orig = layers_mod.ms_deform_attn
+
+    def capturing(value, shapes, locs, weights, **kw):
+        if not captured:
+            captured.append(tuple(t.detach().clone() for t in (value, locs, weights)))
+        return orig(value, shapes, locs, weights, **kw)
+
+    layers_mod.ms_deform_attn = capturing
+    zero_launch_counts()
+    try:
+        with torch.no_grad():
+            out = sequence_parallel_encoder(stack, tokens, pos, ref, SHAPES, group)
+        torch.cuda.synchronize()
+    finally:
+        layers_mod.ms_deform_attn = orig
+    launches = launch_counts()
+    v, lc, wt = captured[0]
+    err = float((deform_attn_exact(v, SHAPES, lc, wt)
+                 - ms_deform_attn_plain(v, SHAPES, lc, wt)).abs().max())
+    return {"out": out.cpu() if rank == 0 else None, "launches": launches,
+            "exact_vs_plain": err, "value_tokens": v.shape[1], "local_queries": lc.shape[1]}
+
+
+RANK_TASKS = {"dp_step": rank_dp_step, "bf16_steps": rank_bf16_steps, "score": rank_score,
+              "planted_score": planted_scoring, "sp_encoder": rank_sp_encoder}
+
+
+def rank_main(rank, world, store, tasks, results):
+    """A rank of the group: join it, then run the parent's tasks in order
+    until told to stop; a failure is sent back and ends the rank."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN"):
+        os.environ.pop(k, None)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        while True:
+            name, kwargs = tasks.get()
+            if name == "stop":
+                return
+            try:
+                results.put((rank, True, RANK_TASKS[name](rank, world, **kwargs)))
+            except Exception:  # noqa: BLE001 - sent to the parent, which raises
+                results.put((rank, False, traceback.format_exc()))
+                return
+    finally:
+        dist.destroy_process_group()
+
+
+class RankGroup:
+    """RANKS processes on cuda:0 in one gloo group (spawned, daemonic), each
+    running the tasks :meth:`run` sends; :meth:`close` stops them."""
+
+    def __init__(self, store_dir):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.tasks = [ctx.Queue() for _ in range(RANKS)]
+        self.results = ctx.Queue()
+        store = os.path.join(store_dir, "store")
+        self.procs = [ctx.Process(target=rank_main, args=(r, RANKS, store, self.tasks[r],
+                                                          self.results), daemon=True)
+                      for r in range(RANKS)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, name, **kwargs):
+        """Each rank's result of task ``name``, in rank order."""
+        import queue
+
+        for q in self.tasks:
+            q.put((name, kwargs))
+        got = {}
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while len(got) < RANKS:
+            try:
+                rank, ok, out = self.results.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(f"two-rank task {name}: no result from ranks "
+                                   f"{sorted(set(range(RANKS)) - set(got))} in "
+                                   f"{RANK_TIMEOUT_S} s") from None
+            if not ok:
+                raise RuntimeError(f"two-rank task {name} failed on rank {rank}:\n{out}")
+            got[rank] = out
+        return [got[r] for r in range(RANKS)]
+
+    def close(self):
+        for q in self.tasks:
+            q.put(("stop", {}))
+        for p in self.procs:
+            p.join(30)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def parallel_phases(smi, tf32, ref13, p9, score, int4_expect, launches, reset_launches,
+                    count_plain_calls):
+    """Phases 19-21 (see the module doc): ``ref13`` is phase 13's first
+    run's losses, ``p9`` phase 9's sgdet and PQ metrics, ``tf32`` the TF32
+    flags to restore; ``score``, ``launches``, ``reset_launches`` and
+    ``count_plain_calls`` are main's helpers. Returns the ``parallel``
+    JSON entry."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from pairnet_torch.bench import train_batch, train_setup
+    from pairnet_torch.models.layers import MSDeformAttention
+    from pairnet_torch.ops.hungarian import batched_hungarian
+    from pairnet_torch.parallel import mesh as mesh_mod
+    from pairnet_torch.tools import train as train_cli
+    from pairnet_torch.train import trainer as trainer_mod
+    from pairnet_torch.train.trainer import to_device
+
+    dev = torch.device(DEVICE)
+
+    t_parallel = time.perf_counter()
+    inits = []  # (backend, world, device) of each process group the CLIs made
+    orig_init = mesh_mod.init_distributed
+
+    def recording_init(*a, **k):
+        out = orig_init(*a, **k)
+        inits.append((dist.get_backend() if dist.is_initialized() else None, out[1], str(out[2])))
+        return out
+
+    def metric_diff(got, want):
+        keys = {k for k in want if not k.endswith(("_eval_time_s", "_images_per_s"))}
+        check(keys <= set(got), f"metric keys {sorted(keys - set(got))} missing")
+        return max(abs(got[k] - want[k]) for k in keys)
+
+    torch.cuda.empty_cache()
+    mesh_mod.init_distributed = recording_init
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    group = RankGroup(store_dir)  # the ranks start up while the world-1 runs go
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN",
+                                                  "PAIRNET_DEBUG_NANS")}
+    try:
+        # --- (19) train, data parallel ---
+        os.environ["PAIRNET_DEBUG_NANS"] = "1"
+        work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            syncs0 = batched_hungarian.syncs
+            count_plain_calls(True)
+            try:
+                with launcher_env():
+                    summary = train_cli.main([SCORE_CONFIG, "--work-dir", work, "--max-epochs",
+                                              "1", "--cfg-options", *SCORE_SPLIT])
+            finally:
+                count_plain_calls(False)
+            torch.cuda.synchronize()
+            ckpts19 = sorted(os.listdir(os.path.join(work, "ckpts")))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+            os.environ.pop("PAIRNET_DEBUG_NANS", None)
+        got, steps = launches(), summary["steps"]
+        check(inits[-1] == ("nccl", 1, DEVICE), f"train CLI process group {inits[-1]}")
+        check(not dist.is_initialized(), "the train CLI left its process group")
+        want = {"deform_attn_exact": 6 * steps, "int4": 0, "deform_attn_bwd": {"f32": 6 * steps},
+                "hungarian": 2 * steps, "plain": {}}
+        check((summary["world"], steps) == (1, 4) and got == want,
+              f"NCCL world-1 train CLI: world {summary['world']}, {steps} steps, launches {got}")
+        check(batched_hungarian.syncs == syncs0, "the Hungarian synced with the host")
+        check(ckpts19 == ["epoch_1.pt"], f"checkpoints {ckpts19}")
+        cli19_err = {k: abs(summary["last"][k] - v) for k, v in ref13.items()}
+        for k, v in ref13.items():
+            check(cli19_err[k] <= TOL_TRAIN_REL * max(1.0, abs(v)),
+                  f"NCCL world-1 train CLI {k}: {summary['last'][k]} vs phase 13's {v}")
+        cli19_s = summary["seconds"] / steps
+        log(f"[19] {smi}: train CLI under NCCL at world size 1 (launcher environment, default "
+            f"device {inits[-1][2]}), {os.path.relpath(SCORE_CONFIG)} as phase 13: {steps} steps, "
+            f"{cli19_s:.3f} s per step, launches {got}, checkpoints {ckpts19}; losses vs phase "
+            f"13's max|d| {max(cli19_err.values()):.3g} (tol {TOL_TRAIN_REL} x max(1, |ref|))")
+
+        # the world-1 f32 step over the global batch (TF32 off), recording
+        # its masks, pair picks and targets for the ranks to replay
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model_w, state_w, step_w = train_setup(dev, compute_dtype=None)
+        no_dropout(model_w)
+        replays = step_replays(model_w)
+        orig_targets = trainer_mod.pairnet_targets
+        trainer_mod.pairnet_targets = replays["targets"]
+        try:
+            m_w1 = {k: float(v) for k, v in
+                    step_w(state_w, to_device(train_batch(RANKS, IMG), dev)).items()}
+        finally:
+            trainer_mod.pairnet_targets = orig_targets
+        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        g_w1 = {f"{n}.{pn}": p.grad.detach().clone() for n, m in model_w.named_modules()
+                if isinstance(m, MSDeformAttention) for pn, p in m.named_parameters()}
+        replay_path = os.path.join(store_dir, "replay.pt")
+        torch.save({k: r.kept for k, r in replays.items()}, replay_path)
+        del model_w, state_w, step_w, replays
+        torch.cuda.empty_cache()
+        dp = group.run("dp_step", replay_path=replay_path, batch_size=1)
+        check(dp[0]["metrics"] == dp[1]["metrics"], "the ranks' global losses differ")
+        dp_loss_err, dp_grad_rel = {}, 0.0
+        for k, ref in m_w1.items():
+            dp_loss_err[k] = abs(dp[0]["metrics"][k] - ref)
+            check(dp_loss_err[k] <= TOL_TRAIN_REL * max(1.0, abs(ref)),
+                  f"two-rank step {k}: {dp[0]['metrics'][k]} vs world-1 {ref}")
+        check(len(g_w1) == 48 and set(dp[0]["grads"]) == set(g_w1), "MSDA gradients")
+        for k, ref in g_w1.items():
+            for r in dp:
+                d = float((r["grads"][k].to(dev) - ref).abs().max())
+                scale = float(ref.abs().max())
+                dp_grad_rel = max(dp_grad_rel, d / max(scale, 1e-30))
+                check(d <= TOL_TRAIN_REL * scale,
+                      f"two-rank step grad {k}: max|d| {d} (max {scale})")
+        for rank, r in enumerate(dp):
+            check(r["params_equal_rank0"], f"rank {rank}'s parameters differ from rank 0's")
+            check(r["launches"] == {"deform_attn_exact": 6, "deform_attn_bwd": {"f32": 6},
+                                    "int4_quantize": 0, "int4_gather": 0, "hungarian": 2},
+                  f"rank {rank} step launches {r['launches']}")
+        log(f"[19] {smi}: two ranks on {DEVICE} (gloo; a harness: NCCL takes one rank a card), "
+            f"one f32 step of full-width R-50, batch 1 a rank, TF32 off, against the world-1 step "
+            f"of the global batch 2: losses max|d| {max(dp_loss_err.values()):.3g}, 48 MSDA "
+            f"gradients within {dp_grad_rel:.3g} of their max (tol {TOL_TRAIN_REL}), parameters "
+            f"equal on both ranks after the step; replayed from the world-1 run "
+            f"{[r['replayed'] for r in dp]}; launches a rank {dp[0]['launches']}")
+        bf = group.run("bf16_steps", batch_size=2, steps=TRAIN_STEPS)
+        for rank, r in enumerate(bf):
+            n = TRAIN_STEPS
+            check(r["launches"] == {"deform_attn_exact": 6 * n, "deform_attn_bwd": {"bf16": 6 * n},
+                                    "int4_quantize": 0, "int4_gather": 0, "hungarian": 2 * n},
+                  f"rank {rank} bf16 launches {r['launches']}")
+            check(all(math.isfinite(v) for m in r["losses"] for v in m.values()),
+                  f"rank {rank} bf16 losses")
+        check(bf[0]["losses"] == bf[1]["losses"], "the ranks' bf16 losses differ")
+        log(f"[19] {smi}: two ranks sharing one card (not a scaling measurement), bf16, batch 2 "
+            f"a rank (global 4), {TRAIN_STEPS} steps: s per step "
+            f"{[round(r['s_per_step'], 3) for r in bf]}; the coalesced gradient all-reduce alone "
+            f"({bf[0]['grad_bytes'] / 2 ** 20:.1f} MiB, gloo through the host) ms "
+            f"{[[round(t, 1) for t in r['all_reduce_ms']] for r in bf]}; launches a rank "
+            f"{bf[0]['launches']}")
+
+        # --- (20) score, sharded ---
+        score20 = {}
+        for what in ("sgdet", "PQ"):
+            with launcher_env():
+                m20, _, pf20 = score(what, {}, device=None)
+            check(inits[-1] == ("nccl", 1, DEVICE), f"test CLI process group {inits[-1]}")
+            check(pf20 == int4_expect, f"NCCL world-1 {what} launches per forward {pf20}")
+            check(metric_diff(m20, p9[what]) == 0, f"NCCL world-1 {what} differs from phase 9's")
+            score20[what] = {"world1": m20}
+        sc = group.run("score", config=SCORE_CONFIG, split_opts=list(SCORE_SPLIT),
+                       batch_size=BATCH)
+        for what in ("sgdet", "PQ"):
+            for rank, r in enumerate(sc):
+                d = metric_diff(r[what]["metrics"], p9[what])
+                check(d <= 1e-6, f"two-rank {what} on rank {rank}: {d} from phase 9's")
+                check(r[what]["launches"]["int4_quantize"] == 6
+                      and r[what]["launches"]["int4_gather"] == 6
+                      and r[what]["launches"]["deform_attn_exact"] == 0,
+                      f"two-rank {what} rank {rank} launches {r[what]['launches']}")
+            score20[what]["two_ranks"] = [r[what]["metrics"] for r in sc]
+        log(f"[20] {smi}: test CLI under NCCL at world size 1: sgdet and PQ equal phase 9's "
+            f"({score20['sgdet']['world1']['sgdet_images_per_s']} / "
+            f"{score20['PQ']['world1']['PQ_images_per_s']} img/s); two ranks over disjoint shards "
+            f"of {SCORE_IMAGES // RANKS} images: within 1e-6 of phase 9's on each rank; launches "
+            f"a rank {sc[0]['sgdet']['launches']}")
+        # random weights score 0, which hides a dropped or doubled image: the
+        # same runners on outputs planted from the GT, which score above 0
+        pl1 = planted_scoring()
+        pl_half = planted_scoring(shard_of=(0, RANKS))
+        headline = {"sgdet": "sgdet_recall_R@20", "PQ": "All_PQ"}
+        for what, k in headline.items():
+            check(pl1[what][k] > 0, f"planted {what} scores {k} = {pl1[what][k]}")
+        half_d = {w: metric_diff(pl_half[w], pl1[w]) for w in headline}
+        check(min(half_d.values()) > 1e-3, f"planted shard 0 alone departs from the whole "
+              f"split by only {half_d}")
+        pl2 = group.run("planted_score")
+        planted_d = max(metric_diff(r[w], pl1[w]) for r in pl2 for w in headline)
+        check(planted_d <= 1e-6, f"two-rank planted scoring {planted_d} from world 1's")
+        score20["planted"] = {"world1": pl1, "shard0_alone": pl_half,
+                              "two_ranks_max_abs_err": planted_d}
+        log(f"[20] {smi}: outputs planted from the GT: world 1 sgdet R@20 "
+            f"{pl1['sgdet']['sgdet_recall_R@20']:.6f}, mR@20 "
+            f"{pl1['sgdet']['sgdet_mean_recall_mR@20']:.6f}, PQ {pl1['PQ']['All_PQ']:.6f}; shard "
+            f"0 alone departs from them by up to {half_d} (so a dropped or doubled image "
+            f"shows); two ranks within {planted_d:.3g} of world 1 (tol 1e-6)")
+
+        # --- (21) the sequence-parallel encoder ---
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        stack = encoder_stack(dev)
+        tokens, pos, ref = encoder_inputs(dev)
+        with torch.no_grad():
+            want = tokens
+            for layer in stack:
+                want = layer(want, pos, ref, SHAPES)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        sp = group.run("sp_encoder")
+        sp_err = float((sp[0]["out"].to(dev) - want).abs().max())
+        sp_bound = TOL_FORWARD_REL * max(1.0, float(want.abs().max()))
+        check(sp_err <= sp_bound, f"sp encoder vs sequential: max|d| {sp_err} > {sp_bound}")
+        S = want.shape[1]
+        for rank, r in enumerate(sp):
+            check(r["launches"]["deform_attn_exact"] == 6, f"rank {rank} sp launches")
+            check((r["value_tokens"], r["local_queries"]) == (S, S // RANKS),
+                  f"rank {rank}: value plane {r['value_tokens']}, queries {r['local_queries']}")
+            check(r["exact_vs_plain"] <= TOL_EXACT_F32,
+                  f"rank {rank}: exact vs plain at local Q {r['exact_vs_plain']}")
+        del stack, tokens, pos, ref, want
+        log(f"[21] {smi}: full-width 6-layer encoder on the {IMG[0]}x{IMG[1]} levels (S = {S}) "
+            f"split over 2 ranks (Q = {S // RANKS} local queries against the gathered plane), "
+            f"f32, TF32 off: max|d| vs the sequential stack {sp_err:.3g} (tol {TOL_FORWARD_REL} x "
+            f"max(1, max|seq|)); exact kernel vs plain at local Q "
+            f"{[round(r['exact_vs_plain'], 9) for r in sp]} (tol {TOL_EXACT_F32}); 6 exact "
+            f"launches a rank")
+    finally:
+        group.close()
+        mesh_mod.init_distributed = orig_init
+        shutil.rmtree(store_dir, ignore_errors=True)
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    parallel_s = time.perf_counter() - t_parallel
+    log(f"[21] phases 19-21 took {parallel_s:.1f} s")
+    return {
+        "card": smi, "seconds": parallel_s,
+        "train_cli_nccl_world1": {"steps": steps, "s_per_step": cli19_s,
+                                  "losses": summary["last"], "loss_max_abs_err_vs_phase13":
+                                      max(cli19_err.values())},
+        "dp_f32_step_two_ranks": {"loss_max_abs_err": max(dp_loss_err.values()),
+                                  "msda_grad_max_rel_err": dp_grad_rel,
+                                  "replayed": [r["replayed"] for r in dp]},
+        "dp_bf16_two_ranks_one_card": {"batch_per_rank": 2, "s_per_step":
+                                       [r["s_per_step"] for r in bf],
+                                       "all_reduce_ms": [r["all_reduce_ms"] for r in bf],
+                                       "grad_bytes": bf[0]["grad_bytes"]},
+        "score": score20,
+        "sp_encoder": {"tokens": S, "ranks": RANKS, "max_abs_err": sp_err,
+                       "exact_vs_plain_local_q": [r["exact_vs_plain"] for r in sp]},
+    }
+
 
 
 def main():
@@ -865,12 +1545,13 @@ def main():
                 "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
 
     def score(what, env, dtype="bf16", capture=False, work_dir=None, config=SCORE_CONFIG,
-              extra=(), split_opts=SCORE_SPLIT):
+              extra=(), split_opts=SCORE_SPLIT, device=DEVICE):
         """One run of ``pairnet_torch.tools.test.main`` on ``config`` and the
         split of ``split_opts`` with the environment ``env`` (on the
         checkpoint of ``work_dir`` if given, else random weights) and the
-        ``extra`` arguments: its metrics after the key-set and finiteness
-        checks, and the kernel launches of the run per forward."""
+        ``extra`` arguments, on ``device`` (None: the CLI's default): its
+        metrics after the key-set and finiteness checks, and the kernel
+        launches of the run per forward."""
         saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN")}
         os.environ.update(env)
         cli.make_apply_fn = counting_apply_fn
@@ -887,8 +1568,9 @@ def main():
         count_plain_calls(True)
         try:
             metrics = cli.main([config, *([work_dir] if work_dir else []), "--eval", what,
-                                "--batch-size", str(BATCH), "--dtype", dtype, "--device",
-                                DEVICE, *extra, "--cfg-options", *split_opts])
+                                "--batch-size", str(BATCH), "--dtype", dtype,
+                                *(["--device", device] if device else []), *extra,
+                                "--cfg-options", *split_opts])
             torch.cuda.synchronize()
         finally:
             count_plain_calls(False)
@@ -1465,6 +2147,11 @@ def main():
         + f"; launches per forward {int4_serving} each; outputs finite, 100 pairs per image")
     del images_s, images2
 
+    parallel = parallel_phases(smi, tf32, cli_runs[0]["losses"],
+                               {what: evaluation["runs"][f"bf16 int4 {what}"]["metrics"]
+                                for what in ("sgdet", "PQ")},
+                               score, int4_expect, launches, reset_launches, count_plain_calls)
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
                                   "ms_per_batch": serve_ms, "img_per_s": img_per_s}}))
@@ -1501,6 +2188,7 @@ def main():
         "scoring": {"config": os.path.relpath(SWIN_CONFIG), "metrics": swin_metrics,
                     "launches_per_forward": swin_per_fwd, "vis_pngs": n_vis, "vis_s": vis_s},
         "train_cli": swin_train, "heads": heads}}))
+    print(json.dumps({"parallel": parallel}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))

@@ -222,11 +222,21 @@ class Loader:
     caller's thread draws the shuffle and every sample from one sequential
     stream seeded ``seed``, as the JAX package's loader does. ``drop_last``
     (default: ``train``) drops a trailing partial batch; otherwise it is
-    padded with its first sample and ``batch_valid`` marks the real ones."""
+    padded with its first sample and ``batch_valid`` marks the real ones.
+
+    Data parallelism: ``batch_size`` is the global batch; rank ``rank`` of
+    ``world`` preprocesses only rows ``rank * b : (rank + 1) * b`` of each
+    global batch (``b = batch_size / world``) at their global positions, so
+    every rank builds the same order and each sample equals the world-1
+    run's at the same position. The sequential stream needs world size 1.
+    (A train image that repeats a (subject, object) pair keeps one of its
+    predicates drawn from the dataset's own generator, as the reference
+    does, in the order the threads ask: that draw follows neither the
+    position nor the rank.)"""
 
     def __init__(self, dataset, cfg: PipelineConfig, batch_size: int, train: bool = False,
                  seed: int = 0, drop_last: bool | None = None, num_workers: int | None = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -238,26 +248,39 @@ class Loader:
             num_workers = int(os.environ.get("PAIRNET_LOADER_WORKERS", "4"))
         self.num_workers = num_workers
         self.prefetch = prefetch
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} does not divide by the world size {world}")
+        if world > 1 and num_workers <= 0:
+            raise ValueError("the sequential sample stream (num_workers <= 0) needs world size 1")
+        self.rank, self.world = rank, world
 
     def __len__(self) -> int:
         n, b = len(self.dataset), self.batch_size
         return n // b if self.drop_last else -(-n // b)
 
-    def _plan(self, order) -> list[tuple[int, list[int]]]:
-        """(position of the batch's first sample, its dataset indices)."""
-        b = self.batch_size
-        end = len(order) - len(order) % b if self.drop_last else len(order)
-        return [(start, [int(i) for i in order[start : start + b]]) for start in range(0, end, b)]
+    def _plan(self, order) -> list[tuple[int, list[int], int]]:
+        """Per global batch: (position of this rank's first sample, its
+        dataset indices, how many of its rows are real). A rank whose rows
+        of a trailing batch are all padding gets the batch's first sample
+        and no real row."""
+        B = self.batch_size
+        b = B // self.world
+        end = len(order) - len(order) % B if self.drop_last else len(order)
+        plan = []
+        for start in range(0, end, B):
+            first = start + self.rank * b
+            idxs = [int(i) for i in order[first : min(first + b, start + B)]]
+            plan.append((first, idxs, len(idxs)) if idxs else (start, [int(order[start])], 0))
+        return plan
 
     def _make_sample(self, i: int, pos: int) -> dict:
         rng = np.random.default_rng([self.seed, pos])
         return preprocess_sample(self.dataset, i, self.cfg, self.train, rng)
 
-    def _finalize(self, samples: list[dict]) -> dict:
-        n_real = len(samples)
-        samples = samples + [samples[0]] * (self.batch_size - n_real)
-        batch = collate(samples)
-        batch["batch_valid"] = np.arange(self.batch_size) < n_real
+    def _finalize(self, samples: list[dict], n_real: int) -> dict:
+        b = self.batch_size // self.world
+        batch = collate(samples + [samples[0]] * (b - len(samples)))
+        batch["batch_valid"] = np.arange(b) < n_real
         return batch
 
     def __iter__(self):
@@ -266,18 +289,19 @@ class Loader:
             self.rng.shuffle(order)
         plan = self._plan(order)
         if self.num_workers <= 0:
-            for _, idxs in plan:
+            for _, idxs, n_real in plan:
                 yield self._finalize([preprocess_sample(self.dataset, i, self.cfg, self.train,
-                                                        self.rng) for i in idxs])
+                                                        self.rng) for i in idxs], n_real)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            def submit(start, idxs):
-                return [pool.submit(self._make_sample, i, start + k) for k, i in enumerate(idxs)]
+            def submit(start, idxs, n_real):
+                return [pool.submit(self._make_sample, i, start + k)
+                        for k, i in enumerate(idxs)], n_real
 
             depth = max(1, self.prefetch)
             pending = [submit(*item) for item in plan[:depth]]
             for nxt in range(depth, len(plan) + depth):
-                futs = pending.pop(0)
+                futs, n_real = pending.pop(0)
                 if nxt < len(plan):
                     pending.append(submit(*plan[nxt]))
-                yield self._finalize([f.result() for f in futs])
+                yield self._finalize([f.result() for f in futs], n_real)

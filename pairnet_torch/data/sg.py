@@ -1,5 +1,6 @@
-"""The balanced relation sampler (the port's copy of
-``BalancedRelationDataset`` in ``pairnet_tpu/data/sg.py``).
+"""Views of a split: the balanced relation sampler (the port's copy of
+``BalancedRelationDataset`` in ``pairnet_tpu/data/sg.py``) and a rank's
+shard of a split for sharded scoring.
 
 The box-only scene graph datasets of that module (VG-150, Open Images V6)
 are not ported yet.
@@ -10,7 +11,39 @@ from __future__ import annotations
 import numpy as np
 
 
-class BalancedRelationDataset:
+class IndexedDataset:
+    """``dataset`` seen through ``indices``: item i is ``dataset``'s item
+    ``indices[i]`` (a rank's shard of a split, the balanced sampler's
+    repeats); everything else is the wrapped dataset's."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = [int(i) for i in indices]
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def get_ann_info(self, idx: int):
+        return self.dataset.get_ann_info(self.indices[idx])
+
+    def load_image(self, idx: int):
+        return self.dataset.load_image(self.indices[idx])
+
+    def load_masks(self, idx: int):
+        return self.dataset.load_masks(self.indices[idx])
+
+    def load_pan_ids(self, idx: int):
+        return self.dataset.load_pan_ids(self.indices[idx])
+
+    @property
+    def data(self):
+        return _IndexedView(self.dataset.data, self.indices)
+
+
+class BalancedRelationDataset(IndexedDataset):
     """LVIS-style repeat-factor oversampling keyed on predicate frequency
     (the reference's balanced_wrapper): per-predicate repeat factor
     r(c) = max(1, sqrt(thr / f(c))) with f(c) the predicate's share of all
@@ -19,10 +52,6 @@ class BalancedRelationDataset:
     default to the wrapped split's own."""
 
     def __init__(self, dataset, oversample_thr: float, rel_cls_freq: dict | None = None):
-        self.dataset = dataset
-        self.CLASSES = dataset.CLASSES
-        self.PREDICATES = dataset.PREDICATES
-
         if rel_cls_freq is None:
             freq = np.zeros(len(dataset.PREDICATES) + 1)
             for i in range(len(dataset)):
@@ -34,30 +63,26 @@ class BalancedRelationDataset:
         repeat = {c: max(1.0, np.sqrt(oversample_thr / (f / total)))
                   for c, f in rel_cls_freq.items()}
 
-        self.repeat_indices: list[int] = []
+        repeat_indices: list[int] = []
         for idx in range(len(dataset)):
             rels = dataset.get_ann_info(idx)["rels"]
             factors = [repeat.get(int(p), 1.0) for p in rels[:, 2]] or [1.0]
-            self.repeat_indices.extend([idx] * int(np.ceil(max(factors))))
-
-    def __len__(self) -> int:
-        return len(self.repeat_indices)
-
-    def __getattr__(self, name):
-        return getattr(self.dataset, name)
-
-    def get_ann_info(self, idx: int):
-        return self.dataset.get_ann_info(self.repeat_indices[idx])
-
-    def load_image(self, idx: int):
-        return self.dataset.load_image(self.repeat_indices[idx])
-
-    def load_masks(self, idx: int):
-        return self.dataset.load_masks(self.repeat_indices[idx])
+            repeat_indices.extend([idx] * int(np.ceil(max(factors))))
+        super().__init__(dataset, repeat_indices)
 
     @property
-    def data(self):
-        return _IndexedView(self.dataset.data, self.repeat_indices)
+    def repeat_indices(self) -> list[int]:
+        return self.indices
+
+
+def shard(dataset, rank: int, world: int):
+    """Rank ``rank``'s images of a split scored by ``world`` ranks: image i
+    goes to rank i mod world, so the shards are disjoint and together
+    complete (no image dropped, none counted twice). The split itself at
+    world size 1."""
+    if world == 1:
+        return dataset
+    return IndexedDataset(dataset, range(rank, len(dataset), world))
 
 
 class _IndexedView:

@@ -5,7 +5,8 @@ Counterpart of ``pairnet_tpu/evaluation/device_eval.py``:
 as f32 products of the flattened 0/1 masks, which are exact below 2^24
 pixels; class-equality of the triplets; graph-constraint matching; top-K
 recall), and :class:`SgdetAccumulator` aggregates the per-image results on
-the host into the numpy oracle's sgdet metric dict. The oracle is
+the host into the numpy oracle's sgdet metric dict, summing its (sum,
+count) bucket statistics over the ranks of a sharded run. The oracle is
 ``evaluation/sgg_eval.py``.
 """
 
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from pairnet_torch.parallel.mesh import all_reduce_arrays
 
 
 def _topk_any(m, topks, K):
@@ -118,24 +121,49 @@ class SgdetAccumulator:
             if phr is not None:
                 self.phr_recalls[k].append((phr[ki] & rv).sum() / n_gt)
 
+    def bucket_stats(self) -> dict:
+        """Fixed-shape (sum, count) arrays per metric bucket (JAX's
+        ``_bucket_stats`` without the pairdet and OIU buckets the port's
+        engine does not fill): the exact sufficient statistics of every
+        mean reported, so what crosses ranks."""
+        T, P = len(self.topks), self.num_predicates
+        s = {"rec": np.zeros((T, 2)), "phr": np.zeros((T, 2)), "mr": np.zeros((T, P + 1, 2)),
+             "grp": np.zeros((4, T, 2))}
+        for ki, k in enumerate(self.topks):
+            s["rec"][ki] = (np.sum(self.recalls[k]), len(self.recalls[k]))
+            s["phr"][ki] = (np.sum(self.phr_recalls[k]), len(self.phr_recalls[k]))
+            for p in range(1, P + 1):
+                v = self.mr_collect[k][p]
+                s["mr"][ki, p] = (np.sum(v), len(v))
+            for j in range(4):
+                v = self.group_recall[j][k]
+                s["grp"][j, ki] = (np.sum(v), len(v))
+        return s
+
     def summarize(self, mode: str = "sgdet") -> dict:
         """The metric dict: means of the per-image scalars (0 for an empty
-        bucket). The multi-process gather of the JAX package waits for the
-        port's distributed evaluation."""
+        bucket). In a sharded run (a process group) each rank holds its
+        images' buckets and they are summed over the ranks first, which
+        merges the means exactly (the counterpart of JAX's
+        ``summarize(gather=True)``)."""
+        return self.metrics(all_reduce_arrays(self.bucket_stats()), mode)
 
-        def mean(v):
-            return float(np.sum(v) / len(v)) if len(v) else 0.0
+    def metrics(self, s: dict, mode: str = "sgdet") -> dict:
+        """The metric dict of bucket statistics ``s``."""
+
+        def mean(pair):
+            return float(pair[0] / pair[1]) if pair[1] else 0.0
 
         out = {}
-        for k in self.topks:
-            out[f"{mode}_recall_R@{k}"] = mean(self.recalls[k])
-        for k in self.topks:
-            mr = sum(mean(self.mr_collect[k][p]) for p in range(1, self.num_predicates + 1))
+        for ki, k in enumerate(self.topks):
+            out[f"{mode}_recall_R@{k}"] = mean(s["rec"][ki])
+        for ki, k in enumerate(self.topks):
+            mr = sum(mean(s["mr"][ki, p]) for p in range(1, self.num_predicates + 1))
             out[f"{mode}_mean_recall_mR@{k}"] = mr / self.num_predicates
         for j, name in enumerate(self.GROUPS):
-            for k in self.topks:
-                out[f"{mode}_group_{name}_R@{k}"] = mean(self.group_recall[j][k])
-        if any(self.phr_recalls[k] for k in self.topks):
-            for k in self.topks:
-                out[f"phrdet_recall_R@{k}"] = mean(self.phr_recalls[k])
+            for ki, k in enumerate(self.topks):
+                out[f"{mode}_group_{name}_R@{k}"] = mean(s["grp"][j, ki])
+        if s["phr"][:, 1].any():
+            for ki, k in enumerate(self.topks):
+                out[f"phrdet_recall_R@{k}"] = mean(s["phr"][ki])
         return out

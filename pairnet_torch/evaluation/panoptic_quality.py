@@ -106,17 +106,21 @@ def pq_single_image(
     return per_class
 
 
-def pq_compute(
+def pq_stats(
     images: list[tuple],  # (gt_ids, gt_id2label, pred_ids, pred_id2label)
     num_classes: int,
-    num_things: int = 80,
-) -> dict:
-    """Aggregate PQ / SQ / RQ (All, Things, Stuff) over a dataset."""
+) -> dict[int, PQStat]:
+    """Per-class PQ stats summed over a dataset's images."""
     agg = {c: PQStat() for c in range(num_classes)}
     for gt_ids, gt_map, pred_ids, pred_map in images:
         stats = pq_single_image(gt_ids, gt_map, pred_ids, pred_map, num_classes)
         for c, s in stats.items():
             agg[c] += s
+    return agg
+
+
+def pq_summarize(agg: dict[int, PQStat], num_classes: int, num_things: int = 80) -> dict:
+    """PQ / SQ / RQ (All, Things, Stuff) of summed per-class stats."""
 
     def summarize(classes):
         present = [

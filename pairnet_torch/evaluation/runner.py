@@ -14,6 +14,13 @@ Counterpart of ``pairnet_tpu/evaluation/runner.py``:
 ``apply_fn(images) -> output dict`` takes the loader's numpy image batch and
 returns the head's tensors. Padded batch entries (``batch_valid``) are
 skipped.
+
+Sharded scoring (a process group, ``torchrun``): each rank scores image i of
+the split when i mod world is its rank (disjoint, complete, uneven shards
+allowed), then the sgdet bucket statistics and PQ's per-class sums are
+summed over the ranks, which merges every metric exactly; the numpy oracle
+gathers the predictions to rank 0 in dataset order, where they are scored
+and saved. Every rank returns the same metrics.
 """
 
 from __future__ import annotations
@@ -24,9 +31,12 @@ import pickle
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pairnet_torch.data.pipeline import Loader, PipelineConfig
+from pairnet_torch.data.sg import shard
 from pairnet_torch.evaluation.sgg_eval import SGGroundTruth, SGPrediction, sgg_evaluate
+from pairnet_torch.parallel.mesh import all_reduce_arrays, is_distributed, world_info
 
 
 @functools.lru_cache(maxsize=64)
@@ -185,23 +195,49 @@ def load_groundtruths(dataset) -> list[SGGroundTruth]:
     return gts
 
 
+def _gather_in_order(items: list) -> list | None:
+    """Every rank's items (rank r holds images r, r + world, ...) on rank 0
+    in dataset order; None on the other ranks. The items themselves with
+    no process group."""
+    rank, world = world_info()
+    if not is_distributed():
+        return items
+    parts = [None] * world if rank == 0 else None
+    dist.gather_object(items, parts, dst=0)
+    if rank != 0:
+        return None
+    return [parts[i % world][i // world] for i in range(sum(len(p) for p in parts))]
+
+
 def evaluate_model(apply_fn, dataset, pipe_cfg: PipelineConfig, batch_size: int = 1,
                    mode: str = "sgdet", num_predicates: int = 56, num_things: int = 80,
                    iou_thr: float = 0.5, results_out: str | None = None) -> dict:
     """The numpy oracle: inference over ``dataset``, predictions on the
-    host, ``sgg_evaluate``. ``results_out`` pickles the predictions."""
+    host, ``sgg_evaluate``. ``results_out`` pickles the predictions. Sharded:
+    rank 0 gathers the predictions, scores and writes them, and hands every
+    rank the metrics."""
     if mode == "predcls":
         raise ValueError("predcls is only defined for two-stage heads (not ported yet)")
+    rank, world = world_info()
     preds: list[SGPrediction] = []
-    for batch in Loader(dataset, pipe_cfg, batch_size):
+    for batch in Loader(shard(dataset, rank, world), pipe_cfg, batch_size):
         out = _host(apply_fn(batch["image"]))
         preds.extend(predictions_to_protocol(out, batch, pipe_cfg.mask_stride, num_things))
-    if results_out:
-        save_predictions(preds, results_out)
-    gts = load_groundtruths(dataset)
-    assert len(gts) == len(preds), (len(gts), len(preds))
-    return sgg_evaluate(gts, preds, mode=mode, num_predicates=num_predicates, iou_thr=iou_thr,
-                        detection_method="pan_seg", num_things=num_things)
+    preds = _gather_in_order(preds)
+    metrics = None
+    if rank == 0:
+        if results_out:
+            save_predictions(preds, results_out)
+        gts = load_groundtruths(dataset)
+        assert len(gts) == len(preds), (len(gts), len(preds))
+        metrics = sgg_evaluate(gts, preds, mode=mode, num_predicates=num_predicates,
+                               iou_thr=iou_thr, detection_method="pan_seg",
+                               num_things=num_things)
+    if is_distributed():
+        box = [metrics]
+        dist.broadcast_object_list(box, src=0)
+        metrics = box[0]
+    return metrics
 
 
 def canvas_resize(masks, ch: int, cw: int, oh: int, ow: int, canvas_hw: tuple[int, int]):
@@ -241,18 +277,20 @@ def evaluate_model_device(apply_fn, dataset, pipe_cfg: PipelineConfig, batch_siz
     """sgdet with the whole scored path on ``device`` (default: where the
     model's outputs lie): forward, post-processing, canvas mask upsampling,
     recall matching. Returns the oracle's sgdet key set: R@K, mR@K,
-    thing/stuff 4-group recall, phrdet."""
+    thing/stuff 4-group recall, phrdet. Sharded when there is a process
+    group."""
     from pairnet_torch.evaluation.device_eval import SgdetAccumulator, device_eval_single
     from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
 
     if mode != "sgdet":
         raise ValueError("the device engine scores sgdet only")
-    # fixed canvas: the largest original resolution of the split, to 8
+    # fixed canvas: the largest original resolution of the whole split, to 8
     CH = -(-max(d.height for d in dataset.data) // 8) * 8
     CW = -(-max(d.width for d in dataset.data) // 8) * 8
+    dataset = shard(dataset, *world_info())
     gts = load_groundtruths(dataset)
-    G_max = max(1, max(len(g.labels) for g in gts))
-    R_max = max(1, max(len(g.rels) for g in gts))
+    G_max = max(1, max((len(g.labels) for g in gts), default=0))
+    R_max = max(1, max((len(g.rels) for g in gts), default=0))
 
     acc = SgdetAccumulator(num_predicates, num_things, topks)
     img_idx = 0
@@ -296,9 +334,16 @@ def evaluate_pq(apply_fn, postprocess_fn, dataset, pipe_cfg: PipelineConfig,
     """Panoptic Quality over a split. The fused id map
     (``m_id * INSTANCE_OFFSET + label``) lives on the stride-``mask_stride``
     padded canvas; its valid region is nearest-upsampled to the original
-    resolution on the host and matched against the GT segments."""
-    from pairnet_torch.evaluation.panoptic_quality import pan_seg_to_ids, pq_compute
+    resolution on the host and matched against the GT segments. Sharded,
+    the per-class (IoU, tp, fp, fn) sums are summed over the ranks."""
+    from pairnet_torch.evaluation.panoptic_quality import (
+        PQStat,
+        pan_seg_to_ids,
+        pq_stats,
+        pq_summarize,
+    )
 
+    dataset = shard(dataset, *world_info())
     images = []
     idx = 0
     for batch in Loader(dataset, pipe_cfg, batch_size):
@@ -325,7 +370,13 @@ def evaluate_pq(apply_fn, postprocess_fn, dataset, pipe_cfg: PipelineConfig,
             images.append((gt_ids, gt_map, pred_ids, pred_map))
             idx += 1
     assert idx == len(dataset), (idx, len(dataset))
-    pq = pq_compute(images, num_classes=num_classes, num_things=num_things)
+    agg = pq_stats(images, num_classes)
+    if is_distributed():
+        sums = all_reduce_arrays({"pq": [[agg[c].iou, agg[c].tp, agg[c].fp, agg[c].fn]
+                                         for c in range(num_classes)]})["pq"]
+        agg = {c: PQStat(float(iou), int(tp), int(fp), int(fn))
+               for c, (iou, tp, fp, fn) in enumerate(sums)}
+    pq = pq_summarize(agg, num_classes, num_things)
     metrics = {}
     for group, vals in pq.items():
         for k in ("PQ", "SQ", "RQ"):

@@ -35,6 +35,7 @@ from pairnet_torch.models.matchers import (
     sample_points_for_matching,
 )
 from pairnet_torch.ops.sampling import sample_mask_points
+from pairnet_torch.parallel.mesh import world_info
 
 
 class PairNetTargets(NamedTuple):
@@ -99,24 +100,32 @@ def pairnet_targets(outputs, batch, points) -> PairNetTargets:
 def pairnet_loss(outputs, batch, points, cum_samples, rel_loss_weight=2.0,
                  subobj_loss_weight=4.0, match_loss_weight=5.0, with_seg_losses=False,
                  cls_loss_weight=2.0, mask_loss_weight=5.0, dice_loss_weight=5.0,
-                 bg_class_weight=0.1, targets: PairNetTargets | None = None):
+                 bg_class_weight=0.1, targets: PairNetTargets | None = None, reduce=None):
     """The Pair-Net loss: (loss dict with ``loss_total``, new cum_samples).
 
     ``points`` (B, P, 2) are the point samples of the mask costs;
     ``cum_samples`` is the Seesaw running class-count state. ``targets``
-    replaces the target building (a replay of another run's targets)."""
+    replaces the target building (a replay of another run's targets).
+    ``reduce`` sums a tensor over the data-parallel ranks: every normalizer
+    is then the global batch's (see ``models/losses.py``)."""
     B, K, R = outputs["rel"].shape
     Cp1 = outputs["cls"].shape[-1]
     t = pairnet_targets(outputs, batch, points) if targets is None else targets
 
     w = t.r_weights.reshape(-1)
-    loss_sub = softmax_ce(outputs["sub"].reshape(-1, Cp1), t.sub_ids.reshape(-1), w)
-    loss_obj = softmax_ce(outputs["obj"].reshape(-1, Cp1), t.obj_ids.reshape(-1), w)
+    loss_sub = softmax_ce(outputs["sub"].reshape(-1, Cp1), t.sub_ids.reshape(-1), w,
+                          reduce=reduce)
+    loss_obj = softmax_ce(outputs["obj"].reshape(-1, Cp1), t.obj_ids.reshape(-1), w,
+                          reduce=reduce)
     loss_r, new_cum = seesaw_ce(outputs["rel"].reshape(-1, R), t.r_labels.reshape(-1), w,
-                                cum_samples)
-    npos = (t.gt_importance > 0).sum().float().clamp_min(1.0)
-    pos_weight = t.gt_importance.numel() / npos
-    loss_match = bce_with_logits_pos_weight(outputs["importance"], t.gt_importance, pos_weight)
+                                cum_samples, reduce=reduce)
+    npos = (t.gt_importance > 0).sum().float()
+    # the global batch's elements: every rank holds B rows (rank_rows and the
+    # loader refuse a batch that does not divide)
+    numel = t.gt_importance.numel() * (1 if reduce is None else world_info()[1])
+    pos_weight = numel / (npos if reduce is None else reduce(npos)).clamp_min(1.0)
+    loss_match = bce_with_logits_pos_weight(outputs["importance"], t.gt_importance, pos_weight,
+                                            numel=numel)
 
     losses = {
         "loss_r_cls": rel_loss_weight * loss_r,
@@ -136,7 +145,7 @@ def pairnet_loss(outputs, batch, points, cum_samples, rel_loss_weight=2.0,
         class_weight[-1] = bg_class_weight
         loss_cls = softmax_ce(outputs["cls"].reshape(-1, Cp1), cls_t.reshape(-1),
                               torch.ones(cls_t.numel(), device=cls_t.device),
-                              class_weight=class_weight)
+                              class_weight=class_weight, reduce=reduce)
         # mask losses on the shared points, matched queries only; the
         # targets' mask_pts are detached, so sample again with gradient
         pred_pts = sample_mask_points(outputs["mask"], points)
@@ -144,11 +153,13 @@ def pairnet_loss(outputs, batch, points, cum_samples, rel_loss_weight=2.0,
             t.gt_pts, 1, safe[..., None].expand(-1, -1, t.gt_pts.shape[-1])
         )  # (B, Q, P)
         wq = matched.float().reshape(-1)
+        n_matched = wq.sum() if reduce is None else reduce(wq.sum())
         loss_mask = torch.sum(
             sigmoid_bce(pred_pts, gt_for_query).mean(-1).reshape(-1) * wq
-        ) / torch.clamp_min(wq.sum(), 1.0)
+        ) / torch.clamp_min(n_matched, 1.0)
         loss_dice = naive_dice_loss(pred_pts.reshape(-1, pred_pts.shape[-1]),
-                                    gt_for_query.reshape(-1, gt_for_query.shape[-1]), wq)
+                                    gt_for_query.reshape(-1, gt_for_query.shape[-1]), wq,
+                                    reduce=reduce)
         losses["loss_cls"] = cls_loss_weight * loss_cls
         losses["loss_mask"] = mask_loss_weight * loss_mask
         losses["loss_dice"] = dice_loss_weight * loss_dice

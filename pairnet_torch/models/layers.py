@@ -18,6 +18,7 @@ from torch import nn
 
 from pairnet_torch.ops.deform_attn import ms_deform_attn
 from pairnet_torch.ops.masked_attn import masked_flash_attention
+from pairnet_torch.parallel.spatial import gather_tokens
 
 LN_EPS = 1e-6  # flax LayerNorm / GroupNorm default
 FLASH_MIN_KEYS = 2048  # the flash route's least memory length (JAX layers.py:107)
@@ -181,12 +182,17 @@ class MSDeformAttention(nn.Module):
     The residual is added here (mmcv adds the identity inside the module).
     ``impl`` picks the MSDA implementation (see ``ops/deform_attn.py``);
     None means the device default. ``bwd`` picks the backward variant,
-    "exact" or "bf16_grad" (see ``ops/deform_attn_bwd.py``).
+    "exact" or "bf16_grad" (see ``ops/deform_attn_bwd.py``). With
+    ``seq_group`` (a process group) the queries and values are this rank's
+    tokens of a sequence split (``parallel/spatial.py``): the projected
+    value plane is all-gathered over the group once per call.
     """
 
-    def __init__(self, embed_dims=256, num_heads=8, num_levels=3, num_points=4):
+    def __init__(self, embed_dims=256, num_heads=8, num_levels=3, num_points=4,
+                 seq_group=None):
         super().__init__()
         self.num_heads, self.num_levels, self.num_points = num_heads, num_levels, num_points
+        self.seq_group = seq_group
         self.impl: str | None = None
         self.bwd = "exact"
         C = embed_dims
@@ -205,6 +211,8 @@ class MSDeformAttention(nn.Module):
         if query_pos is not None:
             query = query + query_pos
         v = self.value_proj(value).reshape(B, -1, H, C // H)
+        if self.seq_group is not None:  # the whole plane, cut to its real tokens
+            v = gather_tokens(v, self.seq_group)[:, : sum(h * w for h, w in spatial_shapes)]
         offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
         attn = self.attention_weights(query).reshape(B, Q, H, L * P)
         attn = torch.softmax(attn, dim=-1).reshape(B, Q, H, L, P)

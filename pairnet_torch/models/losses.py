@@ -11,6 +11,13 @@ the heads that use them):
 
 Reductions are weighted means, ``sum(loss * w) / max(sum(w), eps)``, so
 padded slots never contribute. Every loss computes in f32.
+
+Data parallelism: each reduction takes ``reduce``, a callable that sums a
+tensor over the ranks (``parallel/mesh.py::all_reduce_sum``). With it a
+rank's loss is its local numerator over the GLOBAL denominator, so the
+ranks' losses, and their gradients, sum to the global batch's, as in
+JAX's SPMD step. ``reduce=None`` is world size 1 and computes exactly what
+it did before.
 """
 
 from __future__ import annotations
@@ -19,11 +26,17 @@ import torch
 import torch.nn.functional as F
 
 
-def _wmean(x, w, eps=1e-7):
-    return torch.sum(x * w) / torch.clamp_min(torch.sum(w), eps)
+def _global(t, reduce):
+    """``t`` summed over the ranks (a detached copy), or ``t`` itself at
+    world size 1."""
+    return t if reduce is None else reduce(t.detach().clone())
 
 
-def softmax_ce(logits, labels, weights, class_weight=None):
+def _wmean(x, w, eps=1e-7, reduce=None):
+    return torch.sum(x * w) / torch.clamp_min(_global(torch.sum(w), reduce), eps)
+
+
+def softmax_ce(logits, labels, weights, class_weight=None, reduce=None):
     """Weighted-mean softmax cross entropy; labels are clipped for padded
     slots. With ``class_weight`` the mean is normalized by the summed
     per-sample class weights, as ``F.cross_entropy(weight=...)`` does."""
@@ -33,20 +46,22 @@ def softmax_ce(logits, labels, weights, class_weight=None):
     nll = -torch.gather(logp, -1, labels_safe[..., None])[..., 0]
     if class_weight is not None:
         cw = class_weight[labels_safe]
-        return torch.sum(nll * cw * weights) / torch.clamp_min(torch.sum(cw * weights), 1e-7)
-    return _wmean(nll, weights)
+        return torch.sum(nll * cw * weights) / torch.clamp_min(
+            _global(torch.sum(cw * weights), reduce), 1e-7)
+    return _wmean(nll, weights, reduce=reduce)
 
 
-def seesaw_ce(logits, labels, weights, cum_samples, p=0.8, q=2.0, eps=1e-2):
+def seesaw_ce(logits, labels, weights, cum_samples, p=0.8, q=2.0, eps=1e-2, reduce=None):
     """mmdet seesaw_ce_loss: returns (loss, updated cum_samples).
 
     The counts are updated before the weights are computed (mmdet's
-    SeesawLoss.forward updates its buffer first), and the compensation
+    SeesawLoss.forward updates its buffer first), by the global batch's
+    counts, so ``cum_samples`` stays equal on every rank; the compensation
     factor reads detached scores."""
     C = logits.shape[-1]
     labels_safe = labels.clamp(0, C - 1).long()
     gt_onehot = F.one_hot(labels_safe, C).float()
-    cum_samples = cum_samples + (gt_onehot * weights[..., None]).sum(dim=0)
+    cum_samples = cum_samples + _global((gt_onehot * weights[..., None]).sum(dim=0), reduce)
 
     seesaw = torch.ones((labels_safe.shape[0], C), device=logits.device)
     if p > 0:
@@ -65,15 +80,18 @@ def seesaw_ce(logits, labels, weights, cum_samples, p=0.8, q=2.0, eps=1e-2):
     adj_logits = logits.float() + torch.log(seesaw) * (1.0 - gt_onehot)
     logp = torch.log_softmax(adj_logits, dim=-1)
     nll = -torch.gather(logp, -1, labels_safe[:, None])[:, 0]
-    return _wmean(nll, weights), cum_samples
+    return _wmean(nll, weights, reduce=reduce), cum_samples
 
 
-def bce_with_logits_pos_weight(logits, targets, pos_weight):
-    """``BCEWithLogitsLoss(pos_weight=...)``, mean over all elements."""
+def bce_with_logits_pos_weight(logits, targets, pos_weight, numel=None):
+    """``BCEWithLogitsLoss(pos_weight=...)``, mean over all elements; with
+    ``numel`` (the global batch's element count) the sum over ``numel``."""
     x = logits.float()
     t = targets.float()
     loss = -(pos_weight * t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
-    return loss.mean()
+    if numel is None or numel == loss.numel():
+        return loss.mean()
+    return loss.sum() / numel
 
 
 def sigmoid_bce(logits, targets):
@@ -83,11 +101,11 @@ def sigmoid_bce(logits, targets):
     return -(t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
 
 
-def naive_dice_loss(pred_logits, targets, weights, eps=1.0):
+def naive_dice_loss(pred_logits, targets, weights, eps=1.0, reduce=None):
     """mmdet DiceLoss(naive_dice=True, activate=True, eps=1.0) over the last
     axis, weighted mean over the rows."""
     p = torch.sigmoid(pred_logits.float())
     t = targets.float()
     num = 2.0 * torch.sum(p * t, dim=-1)
     den = torch.sum(p, dim=-1) + torch.sum(t, dim=-1)
-    return _wmean(1.0 - (num + eps) / (den + eps), weights)
+    return _wmean(1.0 - (num + eps) / (den + eps), weights, reduce=reduce)

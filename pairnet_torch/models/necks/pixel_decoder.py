@@ -45,13 +45,15 @@ class ConvGN(nn.Module):
 
 
 class DeformableEncoderLayer(nn.Module):
-    """self_attn -> norm -> ffn -> norm (post-norm, mmcv operation_order)."""
+    """self_attn -> norm -> ffn -> norm (post-norm, mmcv operation_order).
+    ``seq_group``: the process group of a sequence split (see
+    ``parallel/spatial.py``)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_levels=3, num_points=4,
-                 feedforward_channels=1024):
+                 feedforward_channels=1024, seq_group=None):
         super().__init__()
         self.attentions = nn.ModuleList(
-            [MSDeformAttention(embed_dims, num_heads, num_levels, num_points)]
+            [MSDeformAttention(embed_dims, num_heads, num_levels, num_points, seq_group)]
         )
         self.norms = nn.ModuleList([nn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(2)])
         self.ffns = nn.ModuleList([FFN(embed_dims, feedforward_channels)])

@@ -4,11 +4,15 @@ Usage::
 
     python -m pairnet_torch.tools.test CONFIG [WORK_DIR] --eval sgdet
         [--cfg-options k=v ...] [--out metrics.json] [--device cpu]
+    torchrun --nproc_per_node N -m pairnet_torch.tools.test CONFIG ...
 
 With no WORK_DIR the model keeps seeded random weights (a warning says
 so); with one, the newest ``WORK_DIR/ckpts/epoch_<n>.pt`` that the port's
 ``Trainer`` wrote is loaded. The forward runs in bf16 (default) or f32 on
-``--device`` (default CUDA). The MSDA kernels follow the JAX package's
+``--device`` (default ``cuda:LOCAL_RANK``). Under ``torchrun`` the ranks
+score disjoint shards of the split (image i on rank i mod world) and merge
+the metrics exactly (``evaluation/runner.py``); rank 0 logs and writes
+``--out`` and ``--save-results``. The MSDA kernels follow the JAX package's
 environment names, read here and only here: ``PAIRNET_DEFORM_IMPL``
 (``pallas_v16`` -> int4, ``pallas_v12``/``pallas_v14`` -> int8,
 ``pallas_v6``/``pallas_v7`` -> exact, ``rows``/``patch`` -> plain; unset:
@@ -52,7 +56,7 @@ def parse_args(argv=None):
                    help="bf16 (default): bf16 parameters and activations and the int4 MSDA "
                         "kernels, the serving configuration; f32: the exact MSDA kernel")
     p.add_argument("--cfg-options", nargs="+", default=[])
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None, help="torch device (default: cuda:LOCAL_RANK)")
     return p.parse_args(argv)
 
 
@@ -98,11 +102,19 @@ def make_apply_fn(model, device, dtype):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    from pairnet_torch.parallel.mesh import distributed
+
+    with distributed(args.device) as (rank, world, device):
+        return _main(args, rank, world, device)
+
+
+def _main(args, rank: int, world: int, device: torch.device) -> dict:
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s %(message)s")
 
     from pairnet_torch import native
     from pairnet_torch.config import apply_overrides, load_config
-    from pairnet_torch.flagship import resolve_device, set_deform_impl, set_flash_attention
+    from pairnet_torch.flagship import set_deform_impl, set_flash_attention
     from pairnet_torch.train.builder import build_dataset, build_detector, build_pipeline_cfg
 
     cfg = load_config(args.config)
@@ -116,7 +128,6 @@ def main(argv=None) -> dict:
                                   "ROADMAP queue A)")
     impl = deform_impl(args.dtype)
     flash = os.environ.get("PAIRNET_FLASH_ATTN") == "1"
-    device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
 
     dataset = build_dataset(cfg, split=args.split)
@@ -125,8 +136,8 @@ def main(argv=None) -> dict:
     model = load_weights(build_detector(cfg, device=device), args.checkpoint).to(dtype)
     set_deform_impl(model, impl)
     set_flash_attention(model, flash)
-    logging.info("scoring on %s, %s, MSDA %s, flash attention %s", device, args.dtype, impl,
-                 "on" if flash else "off")
+    logging.info("scoring on %s x %d ranks, %s, MSDA %s, flash attention %s", device, world,
+                 args.dtype, impl, "on" if flash else "off")
     apply_fn = make_apply_fn(model, device, dtype)
 
     from pairnet_torch.evaluation import runner
@@ -158,7 +169,7 @@ def main(argv=None) -> dict:
 
     for k, v in sorted(metrics.items()):
         logging.info("%s: %.4f", k, v)
-    if args.out:
+    if args.out and rank == 0:
         with open(args.out, "w") as f:
             json.dump(metrics, f, indent=2)
         logging.info("metrics written to %s", args.out)

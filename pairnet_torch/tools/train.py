@@ -5,9 +5,14 @@ Usage::
     python -m pairnet_torch.tools.train CONFIG [--work-dir D] [--max-steps N]
         [--max-epochs N] [--resume] [--load-from PATH] [--seed S]
         [--cfg-options k=v ...] [--device cpu]
+    torchrun --nproc_per_node N -m pairnet_torch.tools.train CONFIG ...
 
-On one device (default CUDA; DDP waits for ROADMAP A.4): the batch is
-``data.samples_per_device``, the lr ``optimizer.lr`` scaled by batch /
+On ``cuda:LOCAL_RANK`` by default. Under ``torchrun`` every rank joins the
+default process group (NCCL on CUDA, gloo with ``--device cpu``) and the
+step is data parallel (``train/trainer.py``): the global batch is
+``data.samples_per_device`` x world size, each rank loading its rows of it;
+``config.json``, the logs and the checkpoints come from rank 0. The lr is
+``optimizer.lr`` scaled by the global batch /
 ``optimizer.auto_scale_lr_base_batch`` and stepped by the config's
 ``schedule``, AdamW with its ``custom_lr_keys``, weight decay and
 ``grad_clip``, the forward in ``compute_dtype`` (bf16, else f32 masters
@@ -50,7 +55,7 @@ def parse_args(argv=None):
                    help="warm-start weights: .npz of flattened flax variables or a port .pt")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--cfg-options", nargs="+", default=[], help="dotted-path overrides k=v")
-    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--device", default=None, help="torch device (default: cuda:LOCAL_RANK)")
     return p.parse_args(argv)
 
 
@@ -59,11 +64,19 @@ def main(argv=None) -> dict:
     started at, the epochs, steps per epoch, seconds, the last logged
     metrics and the checkpoints written."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    from pairnet_torch.parallel.mesh import distributed
+
+    with distributed(args.device) as (rank, world, device):
+        return _main(args, rank, world, device)
+
+
+def _main(args, rank: int, world: int, device: torch.device) -> dict:
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s %(message)s")
 
     from pairnet_torch.config import apply_overrides, load_config
     from pairnet_torch.data.pipeline import Loader
-    from pairnet_torch.flagship import resolve_device, set_deform_impl
+    from pairnet_torch.flagship import set_deform_impl
     from pairnet_torch.tools.test import deform_impl
     from pairnet_torch.train.builder import build_dataset, build_detector, build_pipeline_cfg
     from pairnet_torch.train.optim import build_optimizer, step_lr_schedule
@@ -81,17 +94,18 @@ def main(argv=None) -> dict:
                                   "ROADMAP A.7)")
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, "config.json"))
+    if rank == 0:
+        cfg.dump(os.path.join(work_dir, "config.json"))
     seed = args.seed if args.seed is not None else cfg.get("seed", 10086)
-    device = resolve_device(args.device)
     impl = deform_impl("f32")  # unset: the exact kernels, whatever the compute dtype
 
     dataset = build_dataset(cfg, split="train")
     pipe_cfg = build_pipeline_cfg(cfg, train=True)
-    batch_size = cfg.data.samples_per_device  # one device
+    batch_size = cfg.data.samples_per_device * world  # the global batch
 
     def loader_fn(epoch):
-        return Loader(dataset, pipe_cfg, batch_size, train=True, seed=seed + epoch)
+        return Loader(dataset, pipe_cfg, batch_size, train=True, seed=seed + epoch, rank=rank,
+                      world=world)
 
     steps_per_epoch = max(1, len(loader_fn(0)))
 
@@ -103,8 +117,9 @@ def main(argv=None) -> dict:
     elif load_from:
         logging.warning("load_from %s not found; training from scratch", load_from)
     n_params = sum(p.numel() for p in model.parameters())
-    logging.info("model %s: %.2fM params, %s, MSDA %s, batch %d, %d steps/epoch",
-                 cfg.model.type, n_params / 1e6, device, impl, batch_size, steps_per_epoch)
+    logging.info("model %s: %.2fM params, %s x %d ranks, MSDA %s, global batch %d, %d "
+                 "steps/epoch", cfg.model.type, n_params / 1e6, device, world, impl, batch_size,
+                 steps_per_epoch)
 
     opt_cfg = cfg.optimizer
     base_lr = opt_cfg.lr
@@ -133,7 +148,8 @@ def main(argv=None) -> dict:
         val_pipe_cfg = build_pipeline_cfg(cfg, train=False)
 
         def val_loader_fn(epoch):
-            return Loader(val_dataset, val_pipe_cfg, batch_size, train=False)
+            return Loader(val_dataset, val_pipe_cfg, batch_size, train=False, rank=rank,
+                          world=world)
 
     t0 = time.perf_counter()
     last = trainer.fit(loader_fn, max_epochs, val_loader_fn=val_loader_fn, resume=args.resume)
@@ -143,7 +159,8 @@ def main(argv=None) -> dict:
     steps = max(0, max_epochs - trainer.start_epoch) * steps_per_epoch
     logging.info("training done: epochs %d-%d, %d steps in %.2f s: %s", trainer.start_epoch + 1,
                  max_epochs, steps, seconds, last)
-    return {"work_dir": work_dir, "start_epoch": trainer.start_epoch, "max_epochs": max_epochs,
+    return {"work_dir": work_dir, "rank": rank, "world": world,
+            "start_epoch": trainer.start_epoch, "max_epochs": max_epochs,
             "steps_per_epoch": steps_per_epoch, "steps": steps, "seconds": seconds,
             "last": last, "checkpoints": [str(p) for _, p in trainer.checkpoints()]}
 

@@ -8,12 +8,15 @@ import functools
 from typing import Callable
 
 
-def get_loss_fn(head_type: str, cfg) -> Callable:
+def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
     """The head's loss with the config's ``loss`` options:
     ``loss(outputs, batch, points, cum_samples, targets=None) -> (losses,
     new_cum_samples)``; its ``num_points`` attribute is the number of
-    points the mask costs and losses sample."""
+    points the mask costs and losses sample. ``reduce`` sums a tensor over
+    the data-parallel ranks (None: world size 1)."""
     loss_cfg = dict(cfg.get("loss", {}))
+    if reduce is not None:
+        loss_cfg["reduce"] = reduce
     if head_type == "PairNetHead":
         from pairnet_torch.models.heads.pairnet_loss import pairnet_loss
 

@@ -1,6 +1,7 @@
 """Training: the train step, the val step and the epoch runner.
 
-Counterpart of ``pairnet_tpu/train/trainer.py`` on one device:
+Counterpart of ``pairnet_tpu/train/trainer.py``, on one device or data
+parallel over the default process group (``parallel/mesh.py``):
 
 * :class:`TrainState`: step, the f32 master model, its AdamW optimizer, the
   Seesaw ``cum_samples`` and a generator seeded 10086 (the reference's seed);
@@ -21,6 +22,15 @@ the mask-cost sampling points and one for the device's default generator,
 which dropout reads, seeded inside ``torch.random.fork_rng``.
 Nothing of a step reaches the host inside the step on the card: the
 target building's Hungarian runs as a kernel there (``ops/hungarian.py``).
+
+Data parallelism computes JAX's sharded step, the step of the global batch:
+each rank holds ``B / world`` rows and the same generator; the points are
+drawn for the global batch and each rank keeps its rows; dropout's seed
+adds the rank; every loss normalizer is the global batch's (the losses'
+``reduce``), so each rank's loss is its share of the global loss and the
+gradients are SUMMED across ranks, in one coalesced all-reduce before the
+clip (JAX's psum), after which AdamW leaves the parameters equal on every
+rank. The logged losses are summed across ranks: the global loss.
 """
 
 from __future__ import annotations
@@ -33,9 +43,16 @@ from pathlib import Path
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from pairnet_torch.models.heads.pairnet_loss import pairnet_targets
+from pairnet_torch.parallel.mesh import (
+    all_reduce_coalesced,
+    all_reduce_sum,
+    is_distributed,
+    world_info,
+)
 from pairnet_torch.train.dispatch import get_loss_fn
 from pairnet_torch.train.optim import GRAD_CLIP, clip_by_global_norm, set_lr
 
@@ -83,6 +100,18 @@ def sample_points(batch_size: int, num_points: int, seed: int, device) -> torch.
     return torch.rand((batch_size, num_points, 2), generator=g, device=device)
 
 
+def _reducer():
+    """The losses' ``reduce``: None (world size 1) without a process group."""
+    return all_reduce_sum if is_distributed() else None
+
+
+def _rank_points(batch_size, num_points, seed, device):
+    """The points of this rank's rows of the global batch."""
+    rank, world = world_info()
+    points = sample_points(batch_size * world, num_points, seed, device)
+    return points[rank * batch_size : (rank + 1) * batch_size]
+
+
 def _upcast_masks(batch: dict) -> dict:
     """The loader ships bool mask canvases; the losses want f32."""
     if batch["gt_masks"].dtype == torch.bool:
@@ -116,17 +145,21 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
     config's ``loss`` options. ``schedule`` maps the step to the base lr;
     without it the optimizer's lr stays as built. ``on_phase(name)`` is
     called at the end of each of ``PHASES`` (a profiling hook: the bench
-    records a CUDA event there). ``grad_clip`` is the max global norm."""
-    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}})
+    records a CUDA event there). ``grad_clip`` is the max global norm.
+    With a process group, ``batch`` is this rank's rows of the global batch
+    and the step is data parallel over the world."""
+    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}}, reduce=_reducer())
     num_points = loss_fn.num_points
     params = list(model.parameters())
     mark = on_phase or (lambda name: None)
+    rank = world_info()[0]
 
     def train_step(state: TrainState, batch: dict) -> dict:
         batch = _upcast_masks(batch)
         image = batch["image"]
         points_seed, dropout_seed = _draw_seeds(state.generator, 2)
-        points = sample_points(image.shape[0], num_points, points_seed, image.device)
+        points = _rank_points(image.shape[0], num_points, points_seed, image.device)
+        dropout_seed += rank  # ranks draw their own dropout masks
         if schedule is not None:
             set_lr(optimizer, schedule(state.step))
         model.train()
@@ -149,12 +182,14 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
         for p in params:  # a parameter the loss never reads has gradient 0, as in JAX
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        all_reduce_coalesced([p.grad for p in params])  # the global batch's gradient
         grad_norm = clip_by_global_norm([p.grad for p in params], grad_clip)
         optimizer.step()
         mark("optimizer")
         state.cum_samples = new_cum
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
+        all_reduce_coalesced(list(metrics.values()))  # the global losses
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -164,16 +199,18 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
 def make_val_step(model, loss_kwargs: dict | None = None):
     """The val step ``(state, batch) -> losses``: deterministic f32 forward,
     the same losses, no gradient and no change to the state. Its points
-    come from a copy of the state's generator."""
-    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}})
+    come from a copy of the state's generator. With a process group each
+    rank's losses are its shares of the global batch's (summed by
+    ``Trainer.val_epoch``)."""
+    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}}, reduce=_reducer())
 
     @torch.no_grad()
     def val_step(state: TrainState, batch: dict) -> dict:
         batch = _upcast_masks(batch)
         image = batch["image"]
         g = torch.Generator().set_state(state.generator.get_state())
-        points = sample_points(image.shape[0], loss_fn.num_points, _draw_seeds(g, 1)[0],
-                               image.device)
+        points = _rank_points(image.shape[0], loss_fn.num_points, _draw_seeds(g, 1)[0],
+                              image.device)
         model.eval()
         losses, _ = loss_fn(model(image), batch, points, state.cum_samples)
         return losses
@@ -187,9 +224,14 @@ def to_device(batch: dict, device) -> dict:
 
 
 class Trainer:
-    """Epoch runner on one device: train, optional val pass and eval hook,
-    checkpoints with keep-rotation, resume. Trains ``state.model`` with
-    ``state.optimizer`` and advances ``state`` in place."""
+    """Epoch runner: train, optional val pass and eval hook, checkpoints
+    with keep-rotation, resume. Trains ``state.model`` with
+    ``state.optimizer`` and advances ``state`` in place. Data parallel over
+    the default process group when there is one: the loaders hand each rank
+    its rows, rank 0 writes the checkpoints (the others wait at a barrier)
+    and alone runs the profiler, every rank resumes from the same file, the
+    NaN guard's decision is summed over the ranks so they raise together,
+    and the val sums are summed over the ranks."""
 
     def __init__(self, state: TrainState, work_dir: str, loss_kwargs: dict | None = None,
                  log_interval: int = 50, ckpt_interval_epochs: int = 1,
@@ -201,6 +243,7 @@ class Trainer:
         self.ckpt_interval_epochs = ckpt_interval_epochs
         self.max_keep_ckpts = max_keep_ckpts
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.rank = world_info()[0]
         self._step_fn = make_train_step(state.model, state.optimizer, loss_kwargs, compute_dtype,
                                         schedule, grad_clip=grad_clip)
         self._val_fn = make_val_step(state.model, loss_kwargs)
@@ -226,13 +269,16 @@ class Trainer:
 
     def save(self, epoch: int) -> Path:
         """Write the state as ``ckpts/epoch_<n>.pt``, keeping the newest
-        ``max_keep_ckpts``."""
+        ``max_keep_ckpts``; rank 0 writes, every rank returns after it."""
         path = self.ckpt_dir / f"epoch_{epoch}.pt"
-        tmp = path.with_suffix(".tmp")
-        torch.save({"epoch": epoch, "state": self.state.state_dict()}, tmp)
-        os.replace(tmp, path)
-        for _, old in self.checkpoints()[: -self.max_keep_ckpts]:
-            old.unlink()
+        if self.rank == 0:
+            tmp = path.with_suffix(".tmp")
+            torch.save({"epoch": epoch, "state": self.state.state_dict()}, tmp)
+            os.replace(tmp, path)
+            for _, old in self.checkpoints()[: -self.max_keep_ckpts]:
+                old.unlink()
+        if is_distributed():
+            dist.barrier()
         return path
 
     def _start_profile(self):
@@ -264,7 +310,7 @@ class Trainer:
         profile_dir = os.environ.get("PAIRNET_PROFILE_DIR")
         prof = None
         for i, batch in enumerate(loader):
-            if profile_dir and epoch == 0 and i == 2:
+            if profile_dir and epoch == 0 and i == 2 and self.rank == 0:
                 prof = self._start_profile()
             batch = to_device(batch, self.state.device)
             metrics = self._step_fn(self.state, batch)
@@ -273,7 +319,8 @@ class Trainer:
                 prof = None
             if nan_check:
                 bad = {k: float(v) for k, v in metrics.items() if not float(v) == float(v)}
-                if bad:
+                flag = torch.tensor([float(len(bad))], device=self.state.device)
+                if float(all_reduce_sum(flag)) > 0:  # every rank raises, or none
                     raise FloatingPointError(f"NaN losses at epoch {epoch} iter {i}: {bad}")
             if (i + 1) % self.log_interval == 0 or i == 0:
                 last = {k: float(v) for k, v in metrics.items()}
@@ -293,6 +340,10 @@ class Trainer:
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
+        if sums and is_distributed():  # each rank summed its shares of the global losses
+            total = torch.tensor(list(sums.values()), dtype=torch.float64,
+                                 device=self.state.device)
+            sums = dict(zip(sums, all_reduce_sum(total).tolist()))
         means = {f"val_{k}": v / max(n, 1) for k, v in sums.items()}
         logger.info("epoch %d val %s", epoch, " ".join(f"{k}={v:.4f}" for k, v in means.items()))
         return means
