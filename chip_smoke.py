@@ -124,10 +124,40 @@ the package picks), started at phase 19 and stopped after phase 21.
      ``TOL_FORWARD_REL`` of the sequential stack in this process; each rank
      6 exact launches at Q = S / 2 local queries against the gathered
      plane, and the exact kernel against its plain version at that Q.
+Phases 22-24 drive the one-stage zoo (PSGTr, PSGFormer, the Mask2Former
+baselines, PSGTr2, DETR4Seg), each built by ``build_model`` from its
+published R-50 config with seeded random weights:
+ 22. serve each at 800x1344, batch 2, bf16, int4 MSDA where there is a
+     pixel decoder (the baseline, its MyPSGFormerHead form, PSGTr2), then
+     the head's post-processing: 6 + 6 int4 launches per forward there and
+     none elsewhere, no plain call, finite outputs; ms per batch (CUDA
+     events), the process's peak GiB and the peak above what was
+     allocated before the forward, and PSGTr's ms split into backbone,
+     transformer and mask branch. Then the baseline's f32 forward (batch 1, TF32 off)
+     through the exact kernel against the plain MSDA within
+     ``TOL_FORWARD_REL``, its reference route's attention masks replayed.
+ 23. the oracle's PIL-exact mask resize of 200 masks to 800x1333 on the
+     card, bit-equal to the host's, both timed; then
+     ``pairnet_torch.tools.test.main`` on ``psgtr_r50_psg.py`` and
+     ``baseline_r50_psg.py`` over phase 9's split, bf16: sgdet (through the
+     head's post-processing and the oracle, as the JAX CLI routes these
+     heads, the masks resized on the card) then PQ; phase 9's key sets,
+     finite values, img/s.
+ 24. ``pairnet_torch.tools.train.main`` on ``psgtr_r50_psg.py``,
+     ``psgformer_r50_psg.py`` and ``baseline_seesaw_r50_psg.py`` (their
+     pipeline, batch 2, f32) for one epoch of 2 steps over 4 synthetic
+     800x1333 train images: the NaN guard, a checkpoint, 1 / 2 / 2
+     Hungarian launches per step and 6 + 6 MSDA launches for the baseline,
+     no solver sync, no plain call; s per step. Then the baseline's f32
+     train step (batch 1, TF32 off) through the exact forward and the bwd2
+     backward against the plain MSDA within ``TOL_TRAIN_REL`` (losses x
+     max(1, |plain|), each MSDA gradient x its max), the kernel run's
+     attention masks and Hungarian assignments replayed.
 Then one JSON line of kernels, one of serving, one of training, one of
 evaluation, one of the train CLI, one of Swin-B and the other heads
-(``swin``), one of phases 19-21 (``parallel``), the card's name and power
-limit, and the final line {"ok": true, "device": {...}}.
+(``swin``), one of phases 19-21 (``parallel``), one of phases 22-24
+(``zoo``), the card's name and power limit, and the final line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -918,6 +948,374 @@ def parallel_phases(smi, tf32, ref13, p9, score, int4_expect, launches, reset_la
                        "exact_vs_plain_local_q": [r["exact_vs_plain"] for r in sp]},
     }
 
+
+
+ZOO_DIR = os.path.dirname(os.path.dirname(SCORE_CONFIG))
+ZOO_CONFIGS = {  # phase 22: every head of the one-stage zoo, R-50
+    "psgtr": ("psgtr/psgtr_r50_psg.py", []),
+    "psgformer": ("psgformer/psgformer_r50_psg.py", []),
+    "baseline": ("baseline/baseline_r50_psg.py", []),
+    "mypsgformer": ("baseline/baseline_r50_psg.py", ["model.bbox_head.type=MyPSGFormerHead",
+                                                     "model.bbox_head.temp=0.1"]),
+    "psgtr2": ("psgtr/psgtr2_r50_psg_plus.py", []),
+    "detr4seg": ("detr4seg/detr4seg_r50_psg.py", []),
+}
+ZOO_MSDA = ("baseline", "mypsgformer", "psgtr2")  # the heads on the MSDA pixel decoder
+ZOO_SCORE = ("psgtr/psgtr_r50_psg.py", "baseline/baseline_r50_psg.py")  # phase 23
+ZOO_TRAIN = {"psgtr/psgtr_r50_psg.py": 1, "psgformer/psgformer_r50_psg.py": 2,  # phase 24:
+             "baseline/baseline_seesaw_r50_psg.py": 2}  # config -> Hungarian calls per step
+# 4 train images at 800x1333: one epoch of 2 steps at batch 2
+ZOO_TRAIN_SPLIT = ("data.dataset.data_root=", "data.dataset.synthetic={'num_images':6,"
+                   "'num_test':2,'height':800,'width':1333,'seed':4}")
+
+
+class HeadMaskReplay(Replay):
+    """Replays only the attention masks of the reference route's
+    prediction head (its third output); its cls and mask logits stay the
+    run's own, which carry the gradients."""
+
+    def __call__(self, *args, **kwargs):
+        own = self.fn(*args, **kwargs)
+        if self.replay is None:
+            self.kept.append(own[2])
+            return own
+        kept = next(self.replay)
+        self.flips += int((own[2] != kept).sum())
+        return (own[0], own[1], kept)
+
+
+def psgtr_breakdown(model, images, cuda_ms):
+    """Where a PSGTr forward's time goes (CUDA events, each part alone on
+    the inputs the forward gives it): the backbone, the DETR transformer
+    with the class and box heads, and the mask branch (attention maps and
+    the mask head, subject and object)."""
+    from pairnet_torch.models.heads.psgtr_head import detr_tokens, mask_branch
+
+    head = model.bbox_head
+    x = images.permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        feats = model.backbone(x)
+        proj = head.input_proj(feats[-1])
+        (outs,), memory = head.transformer(*detr_tokens(proj), head.query_embed.weight)
+
+        def backbone():
+            model.backbone(x)
+
+        def whole_head():
+            head(feats)
+
+        def masks():
+            for side in ("sub", "obj"):
+                mask_branch(proj, memory, outs[-1], getattr(head, f"{side}_bbox_attention"),
+                            getattr(head, f"{side}_mask_head"), feats)
+
+        parts = {"backbone": cuda_ms(torch, backbone, 3), "head": cuda_ms(torch, whole_head, 3),
+                 "mask_branch": cuda_ms(torch, masks, 3)}
+    parts["transformer_and_heads"] = parts["head"] - parts["mask_branch"]
+    return parts
+
+
+def zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_plain_calls):
+    """Phases 22-24 (see the module doc): the one-stage zoo served, scored
+    and trained at full width. ``score``, ``launches``, ``reset_launches``
+    and ``count_plain_calls`` are main's helpers, ``int4_expect`` phase 9's
+    launches per forward, ``tf32`` the TF32 flags to restore. Returns the
+    ``zoo`` JSON entry."""
+    import shutil
+
+    from pairnet_torch.bench import train_batch
+    from pairnet_torch.config import apply_overrides, load_config
+    from pairnet_torch.flagship import perturb_deform_kernels, set_deform_impl
+    from pairnet_torch.models import matchers as matchers_mod
+    from pairnet_torch.models.frameworks.psgtr import build_model
+    from pairnet_torch.models.heads import baseline_head as baseline_mod
+    from pairnet_torch.models.layers import MSDeformAttention
+    from pairnet_torch.ops import hungarian as hungarian_mod
+    from pairnet_torch.ops.hungarian import (
+        batched_hungarian,
+        solve_n_le_m_cuda,
+        solve_n_le_m_plain,
+    )
+    from pairnet_torch.tools import train as train_cli
+    from pairnet_torch.tools.msda_kernels import cuda_ms
+    from pairnet_torch.train.dispatch import get_postprocess_fn
+    from pairnet_torch.train.optim import build_optimizer
+    from pairnet_torch.train.trainer import TrainState, make_train_step, to_device
+
+    dev = torch.device(DEVICE)
+    t_zoo = time.perf_counter()
+    h4, w4 = IMG[0] // 4, IMG[1] // 4
+
+    def zoo_model(name, dtype):
+        path, opts = ZOO_CONFIGS[name]
+        cfg = apply_overrides(load_config(os.path.join(ZOO_DIR, path)), opts)
+        model = perturb_deform_kernels(build_model(cfg.model, device=dev)).to(dtype)
+        return model, cfg.model.bbox_head.type
+
+    # --- (22) serving the zoo at full width, bf16, int4 where there is MSDA ---
+    g = torch.Generator(device=dev).manual_seed(22)
+    images = torch.randn((2, *IMG, 3), generator=g, device=dev)
+    served = {}
+    for name in ZOO_CONFIGS:
+        model, head = zoo_model(name, torch.bfloat16)
+        set_deform_impl(model, "int4")
+        post = get_postprocess_fn(head)
+        imgs = images.to(torch.bfloat16)
+
+        def serve_zoo():
+            with torch.inference_mode():
+                out = model(imgs)
+                return out, [post(out, b) for b in range(imgs.shape[0])]
+
+        serve_zoo()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()  # the weights and what earlier phases hold
+        reset_launches()
+        count_plain_calls(True)
+        out, preds = serve_zoo()
+        torch.cuda.synchronize()
+        count_plain_calls(False)
+        got = launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        forward_peak = peak - resident / 2 ** 30
+        n_int4 = 12 if name in ZOO_MSDA else 0
+        check(got == {"deform_attn_exact": 0, "int4": n_int4, "deform_attn_bwd": {},
+                      "hungarian": 0, "plain": {}}, f"{name} serving launches {got}")
+        for key, val in out.items():
+            if torch.is_tensor(val):
+                check(bool(torch.isfinite(val.float()).all()), f"{name}: {key} finite")
+        check(out["rel" if head != "Detr4SegHead" else "cls"].shape[1] == 100,
+              f"{name}: 100 queries")
+        for key in ("sub_seg", "mask"):
+            if key in out:
+                check(tuple(out[key].shape[-2:]) == (h4, w4), f"{name}: {key} at stride 4")
+        check(len(preds) == 2 and all(tuple(p.labels.shape) == (200,)
+                                      and tuple(p.pan_seg.shape) == (h4, w4) for p in preds),
+              f"{name}: predictions")
+        ms = cuda_ms(torch, serve_zoo, 3)
+        served[name] = {"config": ZOO_CONFIGS[name][0], "cfg_options": ZOO_CONFIGS[name][1],
+                        "ms_per_batch_of_2": ms, "peak_gib": peak,
+                        "forward_peak_gib": forward_peak, "msda_launches_per_forward": n_int4}
+        if name == "psgtr":
+            served[name]["breakdown_ms"] = psgtr_breakdown(model, imgs, cuda_ms)
+        del model, out, preds
+        torch.cuda.empty_cache()
+
+    # Baseline's f32 forward, batch 1, TF32 off: the exact kernel against the
+    # plain MSDA, the reference route's attention masks replayed
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32, _ = zoo_model("baseline", torch.float32)
+    dec = model32.bbox_head.transformer_decoder
+    masks = HeadMaskReplay(lambda *a: type(dec).forward_head(dec, *a), None)
+    dec.forward_head = masks
+    outs = {}
+    for impl in ("exact", "plain"):
+        set_deform_impl(model32, impl)
+        if impl == "plain":
+            masks.start_replay()
+        reset_launches()
+        with torch.inference_mode():
+            outs[impl] = model32(images[:1])
+        torch.cuda.synchronize()
+        outs[impl + "_launches"] = launches()["deform_attn_exact"]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(outs["exact_launches"] == 6 and outs["plain_launches"] == 0,
+          f"baseline f32 forward exact launches {outs['exact_launches']}, plain "
+          f"{outs['plain_launches']}")
+    fwd_err = {}
+    for key in ("cls", "mask", "rel", "subject_scores", "object_scores", "queries"):
+        ref = outs["plain"][key].float()
+        fwd_err[key] = float((outs["exact"][key].float() - ref).abs().max())
+        bound = TOL_FORWARD_REL * max(1.0, float(ref.abs().max()))
+        check(fwd_err[key] <= bound, f"baseline f32 {key}: exact vs plain {fwd_err[key]} > {bound}")
+    del model32, outs
+    torch.cuda.empty_cache()
+    log(f"[22] {smi}: the zoo at full width, {IMG[0]}x{IMG[1]} batch 2 bf16 (int4 MSDA on the "
+        f"pixel decoder; peak GiB of the process, + the part above what was allocated before "
+        f"the forward): " + ", ".join(
+            f"{n} {v['ms_per_batch_of_2']:.2f} ms, peak {v['peak_gib']:.2f} GiB "
+            f"(+{v['forward_peak_gib']:.2f}), "
+            f"{v['msda_launches_per_forward']} MSDA" for n, v in served.items())
+        + f"; PSGTr's ms { {k: round(v, 3) for k, v in served['psgtr']['breakdown_ms'].items()} }"
+        + f"; baseline f32 exact vs plain max|d| { {k: f'{v:.3g}' for k, v in fwd_err.items()} } "
+        f"(tol {TOL_FORWARD_REL} x max(1, max|plain|)), {masks.flips} attention-mask bits "
+        f"the plain run would set otherwise")
+
+    # --- (23) scoring psgtr and baseline with the CLI, sgdet then PQ ---
+    # the oracle's PIL-exact resize of an image's 200 masks to 800x1333 runs
+    # on the masks' device: the card's result bit-equal to the host's
+    from pairnet_torch.evaluation.runner import _resize_logits
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    bits = torch.rand((200, IMG[0] // 4, -(-1333 // 4)), generator=g, device=dev) > 0.5
+    out_hw = (IMG[0], 1333)
+    t0 = time.perf_counter()
+    on_card = _resize_logits(bits, out_hw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = _resize_logits(bits.float().cpu().numpy(), out_hw)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(on_card, on_host), "the oracle's mask resize on the card differs from "
+          "the host's")
+    del bits, on_card, on_host
+    scored = {"oracle_resize_s": {"card": card_s, "host": host_s}}
+    for path in ZOO_SCORE:
+        msda = "baseline" in path
+        expect = int4_expect if msda else {k: ({} if isinstance(v, dict) else 0)
+                                           for k, v in int4_expect.items()}
+        for what in ("sgdet", "PQ"):
+            metrics, _, per_fwd = score(what, {}, config=os.path.join(ZOO_DIR, path))
+            check(per_fwd == expect, f"{path} {what} launches per forward {per_fwd}")
+            scored[f"{path} {what}"] = {"metrics": metrics, "launches_per_forward": per_fwd}
+    log(f"[23] the oracle's resize of 200 masks to {out_hw}: on the card {card_s:.3f} s, on the "
+        f"host {host_s:.3f} s, bit-equal; scored {list(ZOO_SCORE)} on phase 9's split, bf16: "
+        + ", ".join(f"{k} {v['metrics'][k.split()[-1] + '_images_per_s']} img/s"
+                    for k, v in scored.items() if k != "oracle_resize_s")
+        + "; key sets as phase 9's (the JAX engines'), values finite")
+
+    # --- (24) training: the train CLI, then Baseline's f32 step exact vs plain ---
+    trained = {}
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN",
+                                                  "PAIRNET_DEBUG_NANS")}
+    os.environ["PAIRNET_DEBUG_NANS"] = "1"
+    solver_costs = {}  # (config, solved shape) -> the first costs the solver got
+    orig_solve = hungarian_mod._solve_n_le_m
+
+    def recording_solve(cost):
+        solver_costs.setdefault((path, tuple(cost.shape)), cost.detach().clone())
+        return orig_solve(cost)
+
+    hungarian_mod._solve_n_le_m = recording_solve
+    try:
+        for path, n_hung in ZOO_TRAIN.items():
+            work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+            try:
+                torch.cuda.synchronize()
+                reset_launches()
+                syncs0 = batched_hungarian.syncs
+                count_plain_calls(True)
+                try:
+                    summary = train_cli.main([os.path.join(ZOO_DIR, path), "--work-dir", work,
+                                              "--device", DEVICE, "--max-epochs", "1",
+                                              "--cfg-options", *ZOO_TRAIN_SPLIT])
+                finally:
+                    count_plain_calls(False)
+                torch.cuda.synchronize()
+                got, steps = launches(), summary["steps"]
+                n_msda = 6 * steps if "baseline" in path else 0
+                want = {"deform_attn_exact": n_msda, "int4": 0,
+                        "deform_attn_bwd": {"f32": n_msda} if n_msda else {},
+                        "hungarian": n_hung * steps, "plain": {}}
+                check(steps == 2, f"{path}: {steps} steps")
+                check(got == want, f"{path} train CLI launches {got}, expected {want}")
+                check(batched_hungarian.syncs == syncs0, f"{path}: the Hungarian synced")
+                check(all(math.isfinite(v) for v in summary["last"].values()),
+                      f"{path} losses {summary['last']}")
+                ckpts = sorted(os.listdir(os.path.join(work, "ckpts")))
+                check(ckpts == ["epoch_1.pt"], f"{path} checkpoints {ckpts}")
+                trained[path] = {"steps": steps, "s_per_step": summary["seconds"] / steps,
+                                 "hungarian_launches_per_step": got["hungarian"] / steps,
+                                 "msda_launches_per_step": n_msda / steps,
+                                 "losses": summary["last"]}
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+    finally:
+        hungarian_mod._solve_n_le_m = orig_solve
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    # the Hungarian kernel on the zoo matchers' own costs
+    hung = []
+    for (path, shape), cost in solver_costs.items():
+        _, steps = solve_n_le_m_cuda(cost)
+        B_, n_, m_ = shape
+        e = {"config": path, "solved_as": list(shape),
+             "ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 20),
+             "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 20, spin=True),
+             "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(cost), 1),
+             "bound_ms": (cost.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3,
+             "search_steps": int(steps.sum()), "search_steps_max": int(steps.max())}
+        e["ns_per_step"] = e["device_ms"] * 1e6 / max(e["search_steps_max"], 1)
+        hung.append(e)
+
+    # Baseline's f32 train step (batch 1, TF32 off): the exact forward and
+    # bwd2 backward against the plain MSDA, replaying the kernel run's
+    # attention masks and Hungarian assignments
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch1 = to_device(train_batch(1, IMG), dev)
+    hung_diff = lambda own, kept: sum(int((o != k).sum()) for o, k in zip(own, kept))  # noqa
+    replays = {"masks": HeadMaskReplay(None, None),
+               "mask assignments": Replay(matchers_mod.batched_hungarian, hung_diff),
+               "triplet assignments": Replay(baseline_mod.batched_hungarian, hung_diff)}
+    orig = (matchers_mod.batched_hungarian, baseline_mod.batched_hungarian)
+    runs = {}
+    for impl in ("exact", "plain"):
+        model_f, head = zoo_model("baseline", torch.float32)
+        set_deform_impl(model_f, impl)
+        dec = model_f.bbox_head.transformer_decoder
+        replays["masks"].fn = lambda *a, dec=dec: type(dec).forward_head(dec, *a)
+        dec.forward_head = replays["masks"]
+        matchers_mod.batched_hungarian = replays["mask assignments"]
+        baseline_mod.batched_hungarian = replays["triplet assignments"]
+        if impl == "plain":
+            for r in replays.values():
+                r.start_replay()
+        optimizer = build_optimizer(model_f)
+        state = TrainState(model_f, optimizer, 56)
+        step = make_train_step(model_f, optimizer, {}, head_type=head)
+        reset_launches()
+        try:
+            m = {k: float(v) for k, v in step(state, batch1).items()}
+        finally:
+            matchers_mod.batched_hungarian, baseline_mod.batched_hungarian = orig
+        torch.cuda.synchronize()
+        grads = {f"{n}.{pn}": p.grad.detach().clone()
+                 for n, mod in model_f.named_modules() if isinstance(mod, MSDeformAttention)
+                 for pn, p in mod.named_parameters()}
+        runs[impl] = (m, grads, launches())
+        del model_f, state, step, optimizer
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (m_k, g_k, l_k), (m_p, g_p, l_p) = runs["exact"], runs["plain"]
+    check(l_k["deform_attn_exact"] == 6 and l_k["deform_attn_bwd"] == {"f32": 6}
+          and l_k["hungarian"] == 2, f"baseline f32 kernel step launches {l_k}")
+    check(l_p["deform_attn_exact"] == 0 and not l_p["deform_attn_bwd"],
+          f"baseline plain step launches {l_p}")
+    loss_err, grad_rel = {}, 0.0
+    for k, ref in m_p.items():
+        loss_err[k] = abs(m_k[k] - ref)
+        check(loss_err[k] <= TOL_TRAIN_REL * max(1.0, abs(ref)),
+              f"baseline f32 step {k}: {m_k[k]} vs {ref}")
+    check(len(g_k) == len(g_p) == 6 * 8, f"{len(g_k)} MSDA parameter gradients")
+    for k, ref in g_p.items():
+        d = float((g_k[k] - ref).abs().max())
+        scale = float(ref.abs().max())
+        grad_rel = max(grad_rel, d / max(scale, 1e-30))
+        check(d <= TOL_TRAIN_REL * scale, f"baseline f32 step grad {k}: max|d| {d} (max {scale})")
+    flips = {k: r.flips for k, r in replays.items()}
+    del runs, g_k, g_p, batch1
+    torch.cuda.empty_cache()
+    zoo_s = time.perf_counter() - t_zoo
+    log(f"[24] train CLI, one epoch of 2 steps at batch 2 f32 over 4 train images at 800x1333: "
+        + ", ".join(f"{p} {v['s_per_step']:.3f} s/step, {v['hungarian_launches_per_step']:g} "
+                    f"Hungarian + {v['msda_launches_per_step']:g} + "
+                    f"{v['msda_launches_per_step']:g} MSDA launches per step"
+                    for p, v in trained.items())
+        + "; the Hungarian kernel on their costs: " + ", ".join(
+            f"{'x'.join(map(str, e['solved_as']))} {e['ms']:.4f} ms (spun {e['device_ms']:.4f}, "
+            f"{e['search_steps_max']} steps, plain {e['plain_ms']:.1f})" for e in hung)
+        + f"; baseline f32 step exact vs plain: losses max|d| {max(loss_err.values()):.3g}, "
+        f"48 MSDA gradients largest rel {grad_rel:.3g} (tol {TOL_TRAIN_REL}), the plain run "
+        f"would have set otherwise: {flips}; phases 22-24 took {zoo_s:.1f} s")
+    return {"serving": served, "baseline_f32_exact_vs_plain": {
+                "max_abs_err": fwd_err, "mask_bits_replayed": masks.flips},
+            "scoring": scored, "train_cli": trained, "hungarian": hung,
+            "baseline_f32_step": {"loss_max_abs_err": max(loss_err.values()),
+                                  "msda_grad_max_rel_err": grad_rel, "replayed": flips},
+            "seconds": zoo_s}
 
 
 def main():
@@ -2151,6 +2549,7 @@ def main():
                                {what: evaluation["runs"][f"bf16 int4 {what}"]["metrics"]
                                 for what in ("sgdet", "PQ")},
                                score, int4_expect, launches, reset_launches, count_plain_calls)
+    zoo = zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_plain_calls)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
@@ -2189,6 +2588,7 @@ def main():
                     "launches_per_forward": swin_per_fwd, "vis_pngs": n_vis, "vis_s": vis_s},
         "train_cli": swin_train, "heads": heads}}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"zoo": zoo}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))

@@ -9,6 +9,9 @@ Counterpart of ``pairnet_tpu/evaluation/runner.py``:
 * :func:`evaluate_model`: the numpy oracle (``sgg_eval.sgg_evaluate``) on
   host predictions, mask upsampling as PIL's mode-F bilinear resize
   (reproduced in numpy);
+* :func:`evaluate_model_with_postprocess`: the same oracle through a
+  head's own post-processing (``train/dispatch.get_postprocess_fn``), the
+  scoring path of every head but Pair-Net's;
 * :func:`evaluate_pq`: Panoptic Quality of the fused panoptic maps.
 
 ``apply_fn(images) -> output dict`` takes the loader's numpy image batch and
@@ -66,15 +69,17 @@ def _pil_bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndar
 
 def _resample_axis(m: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     """One pass of PIL's float resampling along ``axis`` (1 or 2) of (n, h,
-    w) float32 maps: the taps summed in order in float64, the result
-    rounded to float32."""
+    w) float32 maps, on their device: the taps summed in order in float64,
+    the result rounded to float32. Each product and each sum is one
+    correctly rounded float64 operation (separate kernels, no fused
+    multiply-add), so every device gives the same bits."""
     idx, w = _pil_bilinear_taps(m.shape[axis], out_size)
     acc = None
     for t in range(idx.shape[1]):
         if not w[:, t].any():  # adding zeros changes no sum: PIL's trailing empty taps
             continue
-        wt = torch.from_numpy(w[:, t]).reshape((-1, 1) if axis == 1 else (1, -1))
-        term = m.index_select(axis, torch.from_numpy(idx[:, t])).double() * wt
+        wt = torch.from_numpy(w[:, t]).to(m.device).reshape((-1, 1) if axis == 1 else (1, -1))
+        term = m.index_select(axis, torch.from_numpy(idx[:, t]).to(m.device)).double() * wt
         acc = term if acc is None else acc.add_(term)
     return acc.float()
 
@@ -82,17 +87,20 @@ def _resample_axis(m: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
 RESIZE_CHUNK = 16  # maps resized at a time: bounds the float64 temporaries
 
 
-def _resize_logits(mask_logits: np.ndarray, out_hw: tuple[int, int]) -> np.ndarray:
-    """(N, h, w) float -> (N, H, W) bilinear, bit for bit PIL's mode-F
+def _resize_logits(mask_logits, out_hw: tuple[int, int]) -> np.ndarray:
+    """(N, h, w) float -> (N, H, W) numpy bilinear, bit for bit PIL's mode-F
     ``resize((W, H), BILINEAR)`` (the oracle's semantics), without PIL: a
-    horizontal pass, then a vertical one, each rounded to float32."""
+    horizontal pass, then a vertical one, each rounded to float32.
+    ``mask_logits`` is a numpy array (resized on the host) or a tensor
+    (resized on its device)."""
     H, W = out_hw
-    m = torch.from_numpy(np.ascontiguousarray(mask_logits, np.float32))
-    out = torch.empty((m.shape[0], H, W), dtype=torch.float32)
+    m = (mask_logits.float() if torch.is_tensor(mask_logits)
+         else torch.from_numpy(np.ascontiguousarray(mask_logits, np.float32)))
+    out = torch.empty((m.shape[0], H, W), dtype=torch.float32, device=m.device)
     for i in range(0, m.shape[0], RESIZE_CHUNK):
         chunk = m[i:i + RESIZE_CHUNK]
         out[i:i + RESIZE_CHUNK] = _resample_axis(_resample_axis(chunk, 2, W), 1, H)
-    return out.numpy()
+    return out.cpu().numpy()
 
 
 def _host(out: dict) -> dict:
@@ -223,6 +231,63 @@ def evaluate_model(apply_fn, dataset, pipe_cfg: PipelineConfig, batch_size: int 
     for batch in Loader(shard(dataset, rank, world), pipe_cfg, batch_size):
         out = _host(apply_fn(batch["image"]))
         preds.extend(predictions_to_protocol(out, batch, pipe_cfg.mask_stride, num_things))
+    preds = _gather_in_order(preds)
+    metrics = None
+    if rank == 0:
+        if results_out:
+            save_predictions(preds, results_out)
+        gts = load_groundtruths(dataset)
+        assert len(gts) == len(preds), (len(gts), len(preds))
+        metrics = sgg_evaluate(gts, preds, mode=mode, num_predicates=num_predicates,
+                               iou_thr=iou_thr, detection_method="pan_seg",
+                               num_things=num_things)
+    if is_distributed():
+        box = [metrics]
+        dist.broadcast_object_list(box, src=0)
+        metrics = box[0]
+    return metrics
+
+
+def triplets_to_protocol(pred, batch: dict, b: int, mask_stride: int) -> SGPrediction:
+    """A TripletPrediction of image ``b`` of ``batch`` in the eval protocol
+    at the original resolution: its boolean masks cropped to the valid
+    region, resized as PIL's mode-F bilinear on their device, > 0.5."""
+    rh, rw = (int(x) for x in batch["image_shape"][b])
+    oh, ow = (int(x) for x in batch["orig_shape"][b])
+    ch = max(1, int(np.ceil(rh / mask_stride)))
+    cw = max(1, int(np.ceil(rw / mask_stride)))
+    m = pred.masks[:, :ch, :cw].float()
+    return SGPrediction(
+        labels=pred.labels.cpu().numpy().astype(np.int64),
+        rel_pair_idxes=pred.rel_pairs.cpu().numpy().astype(np.int64),
+        rel_dists=pred.r_dists.float().cpu().numpy(),
+        masks=_resize_logits(m, (oh, ow)) > 0.5,
+    )
+
+
+def evaluate_model_with_postprocess(apply_fn, postprocess_fn, dataset, pipe_cfg: PipelineConfig,
+                                    batch_size: int = 1, mode: str = "sgdet",
+                                    num_predicates: int = 56, num_things: int = 80,
+                                    iou_thr: float = 0.5, results_out: str | None = None) -> dict:
+    """The numpy oracle through a head's post-processing
+    (``postprocess_fn(outputs, b, num_things=...) -> TripletPrediction``),
+    on the device; the predictions come to the host at the original
+    resolution. ``results_out`` pickles them. Sharded as
+    :func:`evaluate_model`."""
+    if mode == "predcls":
+        # predcls puts the GT detections in place of the prediction's, which
+        # only lines up for a head conditioned on GT boxes (two-stage); a
+        # one-stage head's pairs index its own queries
+        raise ValueError("predcls is only defined for two-stage heads (not ported yet)")
+    rank, world = world_info()
+    preds: list[SGPrediction] = []
+    for batch in Loader(shard(dataset, rank, world), pipe_cfg, batch_size):
+        out = {k: v for k, v in apply_fn(batch["image"]).items() if k != "queries"}
+        for b in range(batch["image"].shape[0]):
+            if not batch["batch_valid"][b]:
+                continue
+            trip = postprocess_fn(out, b, num_things=num_things)
+            preds.append(triplets_to_protocol(trip, batch, b, pipe_cfg.mask_stride))
     preds = _gather_in_order(preds)
     metrics = None
     if rank == 0:

@@ -1,7 +1,6 @@
 """Masked-attention transformer decoder (Mask2Former), batch-first.
 
-Counterpart of ``pairnet_tpu/models/decoders/mask2former_decoder.py`` on its
-serving route (resize-then-contract attention masks). Names follow mmdet:
+Counterpart of ``pairnet_tpu/models/decoders/mask2former_decoder.py``. Names follow mmdet:
 the layers and ``post_norm`` live here, while the query tables and the
 cls/mask heads belong to the head that owns this decoder and are passed in.
 
@@ -10,6 +9,16 @@ cls/mask heads belong to the head that owns this decoder and are passed in.
   < 0.5, shared by the heads; rows masked everywhere attend everywhere,
 * the prediction head (post_norm, cls and mask embeds, mask einsum) runs
   in f32 with the weights upcast, also when the trunk is bf16.
+
+Two routes to the attention masks, as in JAX. The default resizes the mask
+features once per level and contracts there (resize is linear, so it
+commutes with the contraction; Pair-Net and PSGTr2). With
+``return_intermediate`` (the Mask2Former baselines, which train per-layer
+losses and build their decoder so in serving too) the reference route runs
+the prediction head at full resolution before the first layer and after
+every layer, resizes those logits to the next level and keeps each layer's
+(cls, mask). The two differ by f32 reassociation, which can flip a mask bit,
+so each head takes the route JAX takes for it.
 """
 
 from __future__ import annotations
@@ -17,8 +26,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pairnet_torch.models.layers import FFN, LN_EPS, AttnSlot, linear_f32
-from pairnet_torch.models.necks.pixel_decoder import bilinear_resize
+from pairnet_torch.models.layers import (
+    FFN,
+    LN_EPS,
+    MLP,
+    AttnSlot,
+    linear_f32,
+    sine_positional_encoding,
+)
+from pairnet_torch.models.necks.pixel_decoder import MSDeformAttnPixelDecoder, bilinear_resize
 
 
 class DecoderLayer(nn.Module):
@@ -59,8 +75,10 @@ def _mlp_f32(x, mlp: nn.Sequential):
 
 
 class Mask2FormerDecoder(nn.Module):
-    def __init__(self, embed_dims=256, num_heads=8, num_layers=9, feedforward_channels=2048):
+    def __init__(self, embed_dims=256, num_heads=8, num_layers=9, feedforward_channels=2048,
+                 return_intermediate=False):
         super().__init__()
+        self.return_intermediate = return_intermediate
         self.layers = nn.ModuleList(
             [DecoderLayer(embed_dims, num_heads, feedforward_channels) for _ in range(num_layers)]
         )
@@ -74,6 +92,16 @@ class Mask2FormerDecoder(nn.Module):
         resolution: resize is linear, so it commutes with the contraction."""
         am = torch.einsum("bqc,bsc->bqs", self._mask_embed(query, mask_embed), mf_small)
         return torch.sigmoid(am) < 0.5
+
+    def forward_head(self, query, mf, attn_hw, cls_embed, mask_embed):
+        """The reference route's prediction head: (cls, full-resolution mask
+        logits, the attention mask at ``attn_hw``: the logits bilinearly
+        resized there, sigmoid < 0.5)."""
+        out = _layer_norm_f32(query, self.post_norm)
+        cls_pred = linear_f32(out, cls_embed)
+        mask_pred = torch.einsum("bqc,bchw->bqhw", _mlp_f32(out, mask_embed), mf)
+        am = bilinear_resize(mask_pred, attn_hw).flatten(2)
+        return cls_pred, mask_pred, (torch.sigmoid(am) < 0.5).detach()
 
     def forward(self, multi_scale_feats, mask_features, pos_encodings, query_feat,
                 query_embed, level_embed, cls_embed, mask_embed):
@@ -91,21 +119,70 @@ class Mask2FormerDecoder(nn.Module):
         query_pos = query_embed[None]
 
         mf = mask_features.float()
-        mf_small = [bilinear_resize(mf, hw).flatten(2).transpose(1, 2) for hw in shapes]
-        attn_mask = self.attn_mask_small(query, mf_small[0], mask_embed)
-        history = []
         n = len(shapes)
+
+        def head(q, lvl):  # the reference route's prediction head, masks at level lvl
+            return self.forward_head(q, mf, shapes[lvl % n], cls_embed, mask_embed)
+
+        if self.return_intermediate:
+            cls_pred, mask_pred, attn_mask = head(query, 0)
+        else:
+            mf_small = [bilinear_resize(mf, hw).flatten(2).transpose(1, 2) for hw in shapes]
+            attn_mask = self.attn_mask_small(query, mf_small[0], mask_embed)
+        history, intermediates = [], []
         for i, layer in enumerate(self.layers):
             all_masked = attn_mask.all(dim=-1, keepdim=True)
             attn_mask = attn_mask & ~all_masked
             query = layer(query, query_pos, memories[i % n], memory_pos[i % n],
                           attn_mask[:, None])
-            if i + 1 < len(self.layers):
+            if self.return_intermediate:
+                cls_pred, mask_pred, attn_mask = head(query, i + 1)
+                intermediates.append((cls_pred, mask_pred))
+            elif i + 1 < len(self.layers):
                 attn_mask = self.attn_mask_small(query, mf_small[(i + 1) % n], mask_embed)
             history.append(query)
 
-        out = _layer_norm_f32(query, self.post_norm)
-        cls_pred = linear_f32(out, cls_embed)
-        mask_pred = torch.einsum("bqc,bchw->bqhw", _mlp_f32(out, mask_embed), mf)
+        if not self.return_intermediate:
+            out = _layer_norm_f32(query, self.post_norm)
+            cls_pred = linear_f32(out, cls_embed)
+            mask_pred = torch.einsum("bqc,bchw->bqhw", _mlp_f32(out, mask_embed), mf)
         return {"cls": cls_pred, "mask": mask_pred, "queries": query,
-                "query_history": torch.stack(history)}
+                "query_history": torch.stack(history), "intermediates": intermediates}
+
+
+class Mask2FormerSegmenter(nn.Module):
+    """The Mask2Former segmenter of Pair-Net, the baselines and PSGTr2: the
+    pixel decoder and the query decoder, with the query tables,
+    ``cls_embed`` and ``mask_embed`` on the head (mmdet naming)."""
+
+    def __init__(self, in_channels, num_classes=133, num_obj_query=100, embed_dims=256,
+                 num_heads=8, num_decoder_layers=9, num_feat_levels=3, pixel_decoder_layers=6,
+                 pixel_decoder_ffn=1024, decoder_ffn=2048, return_intermediate=False):
+        super().__init__()
+        C = embed_dims
+        self.pixel_decoder = MSDeformAttnPixelDecoder(
+            in_channels, feat_channels=C, out_channels=C, num_encoder_levels=num_feat_levels,
+            num_encoder_layers=pixel_decoder_layers, num_heads=num_heads,
+            feedforward_channels=pixel_decoder_ffn,
+        )
+        self.transformer_decoder = Mask2FormerDecoder(
+            C, num_heads, num_decoder_layers, decoder_ffn, return_intermediate
+        )
+        self.query_feat = nn.Embedding(num_obj_query, C)
+        self.query_embed = nn.Embedding(num_obj_query, C)
+        self.level_embed = nn.Embedding(num_feat_levels, C)
+        self.cls_embed = nn.Linear(C, num_classes + 1)
+        self.mask_embed = MLP(C, C, C, 3)
+
+    def segment(self, feats):
+        """(decoder output dict with the ``mask_features``, the multi-scale
+        features, their positional encodings)."""
+        mask_features, ms_feats = self.pixel_decoder(feats)
+        pos = [sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2, dtype=f.dtype,
+                                        device=f.device) for f in ms_feats]
+        dec = self.transformer_decoder(
+            ms_feats, mask_features, pos, self.query_feat.weight, self.query_embed.weight,
+            self.level_embed.weight, self.cls_embed, self.mask_embed,
+        )
+        dec["mask_features"] = mask_features
+        return dec, ms_feats, pos

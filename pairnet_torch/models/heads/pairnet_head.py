@@ -25,35 +25,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pairnet_torch.models.decoders.mask2former_decoder import DecoderLayer, Mask2FormerDecoder
+from pairnet_torch.models.decoders.mask2former_decoder import DecoderLayer, Mask2FormerSegmenter
 from pairnet_torch.models.heads.matrix_learner import create_mapper
-from pairnet_torch.models.layers import MLP, sine_positional_encoding
-from pairnet_torch.models.necks.pixel_decoder import MSDeformAttnPixelDecoder
+from pairnet_torch.models.layers import MLP
 
 
-class PairNetHead(nn.Module):
+class PairNetHead(Mask2FormerSegmenter):
     def __init__(self, in_channels, num_classes=133, num_relations=56, num_obj_query=100,
                  num_rel_query=100, embed_dims=256, num_heads=8, num_decoder_layers=9,
                  num_relation_layers=6, num_feat_levels=3, pixel_decoder_layers=6,
                  pixel_decoder_ffn=1024, decoder_ffn=2048, relation_ffn=2048,
                  relation_ffn_drop=0.1, mapper="conv_tiny", direct=False):
-        super().__init__()
+        super().__init__(in_channels, num_classes, num_obj_query, embed_dims, num_heads,
+                         num_decoder_layers, num_feat_levels, pixel_decoder_layers,
+                         pixel_decoder_ffn, decoder_ffn)
         C, K = embed_dims, num_rel_query
         self.num_rel_query = K
         self.direct = direct
-        self.pixel_decoder = MSDeformAttnPixelDecoder(
-            in_channels, feat_channels=C, out_channels=C, num_encoder_levels=num_feat_levels,
-            num_encoder_layers=pixel_decoder_layers, num_heads=num_heads,
-            feedforward_channels=pixel_decoder_ffn,
-        )
-        self.transformer_decoder = Mask2FormerDecoder(
-            C, num_heads, num_decoder_layers, decoder_ffn
-        )
-        self.query_feat = nn.Embedding(num_obj_query, C)
-        self.query_embed = nn.Embedding(num_obj_query, C)
-        self.level_embed = nn.Embedding(num_feat_levels, C)
-        self.cls_embed = nn.Linear(C, num_classes + 1)
-        self.mask_embed = MLP(C, C, C, 3)
         self.rel_query_feat = nn.Embedding(K, C)
         self.rel_query_embed = nn.Embedding(K, C)
         self.rel_query_embed2 = nn.Embedding(2 * K, C)
@@ -79,16 +67,7 @@ class PairNetHead(nn.Module):
 
     def forward(self, feats):
         """feats: backbone (C2, C3, C4, C5) NCHW. Returns the prediction dict."""
-        mask_features, ms_feats = self.pixel_decoder(feats)
-        pos_encodings = [
-            sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2,
-                                     dtype=f.dtype, device=f.device)
-            for f in ms_feats
-        ]
-        dec = self.transformer_decoder(
-            ms_feats, mask_features, pos_encodings, self.query_feat.weight,
-            self.query_embed.weight, self.level_embed.weight, self.cls_embed, self.mask_embed,
-        )
+        dec, _, _ = self.segment(feats)
         cls_pred, mask_pred, queries = dec["cls"], dec["mask"], dec["queries"]
         B = queries.shape[0]
 

@@ -9,7 +9,12 @@ Usage::
 With no WORK_DIR the model keeps seeded random weights (a warning says
 so); with one, the newest ``WORK_DIR/ckpts/epoch_<n>.pt`` that the port's
 ``Trainer`` wrote is loaded. The forward runs in bf16 (default) or f32 on
-``--device`` (default ``cuda:LOCAL_RANK``). Under ``torchrun`` the ranks
+``--device`` (default ``cuda:LOCAL_RANK``). Pair-Net scores sgdet on the
+device engine (``--eval-engine numpy`` or ``--save-results``: the host
+oracle); every other one-stage head (PSGTr, PSGFormer, the Mask2Former
+baselines, PSGTr2, DETR4Seg) through its own post-processing and the host
+oracle, as the JAX CLI routes them; PQ through the head's
+post-processing. Under ``torchrun`` the ranks
 score disjoint shards of the split (image i on rank i mod world) and merge
 the metrics exactly (``evaluation/runner.py``); rank 0 logs and writes
 ``--out`` and ``--save-results``. The MSDA kernels follow the JAX package's
@@ -90,12 +95,14 @@ def load_weights(model, work_dir: str | None):
 def make_apply_fn(model, device, dtype):
     """``apply_fn(images) -> outputs``: the loader's numpy images in ``dtype``
     on ``device`` through the model; bf16 outputs come back as f32, so the
-    post-processing is the same whatever the compute dtype."""
+    post-processing is the same whatever the compute dtype. The per-layer
+    lists of the DETR heads are left out, as the JAX runners leave them."""
 
     def apply_fn(images):
         with torch.inference_mode():
             out = model(torch.from_numpy(images).to(device=device, dtype=dtype))
-        return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in out.items()}
+        return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in out.items()
+                if torch.is_tensor(v)}
 
     return apply_fn
 
@@ -121,11 +128,8 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
     if cfg.model.type == "SceneGraphTwoStage":
-        raise NotImplementedError("two-stage models are not yet ported (ROADMAP queue A)")
+        raise NotImplementedError("two-stage models are not yet ported (ROADMAP queue A: A.7)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
-    if head_type != "PairNetHead":
-        raise NotImplementedError(f"head {head_type!r} is not yet ported (only PairNetHead; "
-                                  "ROADMAP queue A)")
     impl = deform_impl(args.dtype)
     flash = os.environ.get("PAIRNET_FLASH_ATTN") == "1"
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -156,7 +160,13 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
                       num_predicates=cfg.num_relation_classes,
                       num_things=cfg.evaluation.num_things,
                       iou_thr=cfg.evaluation.get("iou_thr", 0.5))
-        if args.eval_engine == "device" and args.eval == "sgdet" and not args.save_results:
+        if head_type != "PairNetHead":
+            from pairnet_torch.train.dispatch import get_postprocess_fn
+
+            metrics = runner.evaluate_model_with_postprocess(
+                apply_fn, get_postprocess_fn(head_type), dataset, pipe_cfg,
+                results_out=args.save_results, **kwargs)
+        elif args.eval_engine == "device" and args.eval == "sgdet" and not args.save_results:
             metrics = runner.evaluate_model_device(apply_fn, dataset, pipe_cfg, **kwargs)
         else:
             metrics = runner.evaluate_model(apply_fn, dataset, pipe_cfg,

@@ -17,7 +17,9 @@ step is data parallel (``train/trainer.py``): the global batch is
 ``schedule``, AdamW with its ``custom_lr_keys``, weight decay and
 ``grad_clip``, the forward in ``compute_dtype`` (bf16, else f32 masters
 only). ``config.json`` is written into the work dir, checkpoints into its
-``ckpts/epoch_<n>.pt`` (which ``pairnet_torch.tools.test`` scores).
+``ckpts/epoch_<n>.pt`` (which ``pairnet_torch.tools.test`` scores). Every one-stage head of the port
+trains, with its own loss (``train/dispatch.py``); the Seesaw baseline
+carries R + 1 Seesaw counts, as JAX's CLI sizes them.
 ``--max-steps`` caps the epochs at ceil(max_steps / steps per epoch), as
 the JAX CLI does. A run starts at epoch 0 unless ``--resume`` continues
 from the newest checkpoint. ``--load-from`` (or the config's ``load_from``)
@@ -89,9 +91,9 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     if cfg.model.type == "SceneGraphTwoStage":
         raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.7)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
-    if head_type != "PairNetHead":
-        raise NotImplementedError(f"head {head_type!r} is not yet ported (only PairNetHead; "
-                                  "ROADMAP A.7)")
+    from pairnet_torch.train.dispatch import get_loss_fn
+
+    cum_size = get_loss_fn(head_type, cfg).cum_size(cfg.num_relation_classes)
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
     if rank == 0:
@@ -129,14 +131,14 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
                                 cfg.schedule.gamma)
     optimizer = build_optimizer(model, base_lr, weight_decay=opt_cfg.weight_decay,
                                 custom_lr_keys=dict(opt_cfg.custom_lr_keys))
-    state = TrainState(model, optimizer, cfg.num_relation_classes, seed=seed)
+    state = TrainState(model, optimizer, cum_size, seed=seed)
     compute_dtype = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16}.get(
         cfg.get("compute_dtype") or "")
     trainer = Trainer(state, work_dir, loss_kwargs=dict(cfg.get("loss", {})),
                       log_interval=cfg.get("log_interval", 50),
                       ckpt_interval_epochs=cfg.checkpoint.interval_epochs,
                       max_keep_ckpts=cfg.checkpoint.max_keep, compute_dtype=compute_dtype,
-                      schedule=schedule, grad_clip=opt_cfg.grad_clip)
+                      schedule=schedule, grad_clip=opt_cfg.grad_clip, head_type=head_type)
     max_epochs = args.max_epochs or cfg.schedule.max_epochs
     if args.max_steps:
         max_epochs = min(max_epochs, -(-args.max_steps // steps_per_epoch))

@@ -1,19 +1,47 @@
-"""Head type -> loss and post-processing dispatch for the CLIs (the port's
-counterpart of ``pairnet_tpu/train/dispatch.py``; only Pair-Net's head is
-ported, the other heads wait for ROADMAP A.7)."""
+"""Head type -> loss and post-processing dispatch for the CLIs and the
+trainer (the port's counterpart of ``pairnet_tpu/train/dispatch.py``).
+
+Every loss has the signature ``loss(outputs, batch, points, cum_samples,
+targets=None) -> (losses, new_cum_samples)``: ``points`` (B, P, 2) are the
+mask-cost samples the step draws (JAX draws them from its key inside the
+loss), ``cum_samples`` the Seesaw counts, which only Pair-Net and the
+Seesaw baseline advance. Its ``num_points`` attribute is P (0 for the
+heads that sample none), ``cum_size`` the length of the ``cum_samples``
+it carries, given the number of predicates.
+"""
 
 from __future__ import annotations
 
 import functools
 from typing import Callable
 
+_BBOX = ("CrossHeadBBox",)
+_TWO_STAGE = ("MotifHead", "IMPHead", "GPSHead", "VCTreeHead")
+
+
+def _not_ported(head_type: str):
+    item = ("the bbox head" if head_type in _BBOX else
+            "two-stage" if head_type in _TWO_STAGE else "the model zoo")
+    return NotImplementedError(f"head type {head_type!r} is not ported yet (ROADMAP A.7: {item})")
+
+
+def _plain_loss(loss, loss_cfg, num_points, takes_points=True):
+    """A loss without Seesaw counts in the dispatch signature."""
+    kw = dict(loss_cfg)
+
+    def fn(outputs, batch, points, cum_samples, targets=None):
+        args = (outputs, batch, points) if takes_points else (outputs, batch)
+        return loss(*args, **kw), cum_samples
+
+    fn.num_points = num_points
+    fn.cum_size = lambda num_relations: num_relations
+    return fn
+
 
 def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
-    """The head's loss with the config's ``loss`` options:
-    ``loss(outputs, batch, points, cum_samples, targets=None) -> (losses,
-    new_cum_samples)``; its ``num_points`` attribute is the number of
-    points the mask costs and losses sample. ``reduce`` sums a tensor over
-    the data-parallel ranks (None: world size 1)."""
+    """The head's loss with the config's ``loss`` options (see the module
+    doc). ``reduce`` sums a tensor over the data-parallel ranks (None:
+    world size 1); every loss then normalizes by the global batch's counts."""
     loss_cfg = dict(cfg.get("loss", {}))
     if reduce is not None:
         loss_cfg["reduce"] = reduce
@@ -23,9 +51,40 @@ def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
         num_points = loss_cfg.pop("num_points", 12544)
         fn = functools.partial(pairnet_loss, **loss_cfg)
         fn.num_points = num_points
+        fn.cum_size = lambda num_relations: num_relations
         return fn
-    raise NotImplementedError(f"no loss for head type {head_type!r} in the port yet (only "
-                              "PairNetHead; ROADMAP A.7)")
+    if head_type in ("BaselineHead", "MyPSGFormerHead"):
+        from pairnet_torch.models.heads.baseline_head import baseline_loss
+
+        num_points = loss_cfg.pop("num_points", 12544)
+        seesaw = bool(loss_cfg.get("use_seesaw"))
+
+        def fn(outputs, batch, points, cum_samples, targets=None):
+            return baseline_loss(outputs, batch, points, cum_samples, **loss_cfg)
+
+        fn.num_points = num_points
+        # CrossHead4's Seesaw runs over R + 1 classes, the background column included
+        fn.cum_size = lambda num_relations: num_relations + int(seesaw)
+        return fn
+    if head_type == "PSGTrHead":
+        from pairnet_torch.models.heads.psgtr_head import psgtr_loss
+
+        return _plain_loss(psgtr_loss, loss_cfg, 0, takes_points=False)
+    if head_type == "PSGFormerHead":
+        from pairnet_torch.models.heads.psgformer_head import psgformer_loss
+
+        return _plain_loss(psgformer_loss, loss_cfg, 0, takes_points=False)
+    if head_type == "PSGTr2Head":
+        from pairnet_torch.models.heads.psgtr2_head import psgtr2_loss
+
+        num_points = loss_cfg.pop("num_points", 12544)
+        return _plain_loss(psgtr2_loss, loss_cfg, num_points)
+    if head_type == "Detr4SegHead":
+        from pairnet_torch.models.heads.detr4seg_head import detr4seg_loss
+
+        num_points = loss_cfg.pop("num_points", 2048)
+        return _plain_loss(detr4seg_loss, loss_cfg, num_points)
+    raise _not_ported(head_type)
 
 
 def get_postprocess_fn(head_type: str) -> Callable:
@@ -34,5 +93,20 @@ def get_postprocess_fn(head_type: str) -> Callable:
         from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
 
         return pairnet_postprocess
-    raise NotImplementedError(f"no post-processing for head type {head_type!r} in the port "
-                              "yet (only PairNetHead; ROADMAP A.7)")
+    if head_type in ("BaselineHead", "MyPSGFormerHead", "PSGFormerHead"):
+        from pairnet_torch.models.heads.baseline_head import baseline_postprocess
+
+        return baseline_postprocess
+    if head_type == "PSGTrHead":
+        from pairnet_torch.models.heads.psgtr_head import psgtr_postprocess
+
+        return psgtr_postprocess
+    if head_type == "PSGTr2Head":
+        from pairnet_torch.models.heads.psgtr2_head import psgtr2_postprocess
+
+        return psgtr2_postprocess
+    if head_type == "Detr4SegHead":
+        from pairnet_torch.models.heads.detr4seg_head import detr4seg_postprocess
+
+        return detr4seg_postprocess
+    raise _not_ported(head_type)

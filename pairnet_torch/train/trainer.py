@@ -6,7 +6,8 @@ parallel over the default process group (``parallel/mesh.py``):
 * :class:`TrainState`: step, the f32 master model, its AdamW optimizer, the
   Seesaw ``cum_samples`` and a generator seeded 10086 (the reference's seed);
 * :func:`make_train_step`: forward in train mode, on-device targets, the
-  Pair-Net losses, backward, optax's global-norm clip (over every gradient,
+  head's losses (``dispatch.get_loss_fn``; Pair-Net's targets are built
+  apart, the other heads' inside their loss), backward, optax's global-norm clip (over every gradient,
   the frozen stem's included) and the AdamW step. With
   ``compute_dtype=torch.bfloat16`` the forward runs on bf16 copies of every
   f32 parameter and buffer and a bf16 image, and its outputs are cast back
@@ -119,6 +120,15 @@ def _upcast_masks(batch: dict) -> dict:
     return batch
 
 
+def upcast(tree, dtype):
+    """The tensors of ``tree`` (nested dicts and lists) in ``dtype`` as f32."""
+    if isinstance(tree, dict):
+        return {k: upcast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(upcast(v, dtype) for v in tree)
+    return tree.float() if tree.dtype == dtype else tree
+
+
 def forward(model, image, compute_dtype=None):
     """The model's forward, in ``compute_dtype`` if given: bf16 copies of
     every f32 parameter and buffer, a bf16 image, f32 outputs."""
@@ -126,8 +136,7 @@ def forward(model, image, compute_dtype=None):
         return model(image)
     tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     cast = {n: t.to(compute_dtype) if t.dtype == torch.float32 else t for n, t in tensors.items()}
-    out = functional_call(model, cast, (image.to(compute_dtype),))
-    return {k: v.float() if v.dtype == compute_dtype else v for k, v in out.items()}
+    return upcast(functional_call(model, cast, (image.to(compute_dtype),)), compute_dtype)
 
 
 PHASES = ("forward", "targets", "loss", "backward", "optimizer")
@@ -136,7 +145,7 @@ PHASES = ("forward", "targets", "loss", "backward", "optimizer")
 def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_dtype=None,
                     schedule: Callable[[int], float] | None = None,
                     on_phase: Callable[[str], None] | None = None,
-                    grad_clip: float = GRAD_CLIP):
+                    grad_clip: float = GRAD_CLIP, head_type: str = "PairNetHead"):
     """The train step ``(state, batch) -> metrics``: advances ``state`` in
     place and returns the losses and ``grad_norm`` (the pre-clip global
     norm) as device tensors. ``batch`` holds device tensors: ``image``
@@ -146,9 +155,12 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
     without it the optimizer's lr stays as built. ``on_phase(name)`` is
     called at the end of each of ``PHASES`` (a profiling hook: the bench
     records a CUDA event there). ``grad_clip`` is the max global norm.
+    ``head_type`` picks the loss (``dispatch.get_loss_fn``); the DETR heads'
+    losses also read the batch's ``gt_boxes`` and ``image_shape``.
     With a process group, ``batch`` is this rank's rows of the global batch
     and the step is data parallel over the world."""
-    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}}, reduce=_reducer())
+    loss_fn = get_loss_fn(head_type, {"loss": loss_kwargs or {}}, reduce=_reducer())
+    pairnet = head_type == "PairNetHead"
     num_points = loss_fn.num_points
     params = list(model.parameters())
     mark = on_phase or (lambda name: None)
@@ -172,7 +184,7 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
                 torch.random.default_generator.manual_seed(dropout_seed)
             out = forward(model, image, compute_dtype)
         mark("forward")
-        targets = pairnet_targets(out, batch, points)
+        targets = pairnet_targets(out, batch, points) if pairnet else None
         mark("targets")
         losses, new_cum = loss_fn(out, batch, points, state.cum_samples, targets=targets)
         mark("loss")
@@ -196,13 +208,13 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
     return train_step
 
 
-def make_val_step(model, loss_kwargs: dict | None = None):
+def make_val_step(model, loss_kwargs: dict | None = None, head_type: str = "PairNetHead"):
     """The val step ``(state, batch) -> losses``: deterministic f32 forward,
     the same losses, no gradient and no change to the state. Its points
     come from a copy of the state's generator. With a process group each
     rank's losses are its shares of the global batch's (summed by
     ``Trainer.val_epoch``)."""
-    loss_fn = get_loss_fn("PairNetHead", {"loss": loss_kwargs or {}}, reduce=_reducer())
+    loss_fn = get_loss_fn(head_type, {"loss": loss_kwargs or {}}, reduce=_reducer())
 
     @torch.no_grad()
     def val_step(state: TrainState, batch: dict) -> dict:
@@ -236,7 +248,8 @@ class Trainer:
     def __init__(self, state: TrainState, work_dir: str, loss_kwargs: dict | None = None,
                  log_interval: int = 50, ckpt_interval_epochs: int = 1,
                  max_keep_ckpts: int = 15, compute_dtype=None,
-                 schedule: Callable[[int], float] | None = None, grad_clip: float = GRAD_CLIP):
+                 schedule: Callable[[int], float] | None = None, grad_clip: float = GRAD_CLIP,
+                 head_type: str = "PairNetHead"):
         self.state = state
         self.ckpt_dir = Path(work_dir) / "ckpts"
         self.log_interval = log_interval
@@ -245,8 +258,8 @@ class Trainer:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.rank = world_info()[0]
         self._step_fn = make_train_step(state.model, state.optimizer, loss_kwargs, compute_dtype,
-                                        schedule, grad_clip=grad_clip)
-        self._val_fn = make_val_step(state.model, loss_kwargs)
+                                        schedule, grad_clip=grad_clip, head_type=head_type)
+        self._val_fn = make_val_step(state.model, loss_kwargs, head_type)
 
     def checkpoints(self) -> list[tuple[int, Path]]:
         found = []

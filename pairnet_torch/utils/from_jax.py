@@ -1,10 +1,13 @@
 """Load the JAX package's variables into the port's modules.
 
 ``variables`` is the ``{"params": ..., "constants": ...}`` tree of the flax
-model (``PSGTr(ResNet, PairNetHead)``) with numpy leaves. The port's
+model (``PSGTr(backbone, head)``) with numpy leaves. The port's
 ``state_dict()`` keys are the reference checkpoint's keys, so this is the
-exact inverse of the JAX package's checkpoint converter
-(``pairnet_tpu/utils/torch_convert.py::convert_pairnet_checkpoint``):
+exact inverse of the JAX package's checkpoint converters
+(``pairnet_tpu/utils/torch_convert.py``: ``convert_pairnet_checkpoint``,
+``convert_psgtr_checkpoint``, ``convert_psgformer_checkpoint``,
+``convert_baseline_checkpoint``). PSGTr2 and DETR4Seg, which have no
+converter, share those heads' modules and names:
 
 * torch Linear weight (out, in)   <- flax Dense kernel (in, out)
 * torch Conv2d (O, I, kh, kw)     <- flax Conv kernel (kh, kw, I, O)
@@ -35,7 +38,24 @@ from pairnet_torch.models.layers import FrozenBatchNorm, MultiheadAttention
 # torch module name -> flax module path, applied in order on the dotted name
 _E = r"(?=\.|$)"  # end of a name component
 _SWIN_BLOCK = r"^backbone\.stage(\d+)_block(\d+)"
+# the Mask2Former heads' query tables and prediction heads, which flax keeps
+# on the decoder (a DETR head's own ``query_embed`` stays on the head)
+_M2F_TABLES = r"^bbox_head\.(query_feat|query_embed|level_embed|cls_embed|mask_embed)" + _E
 _RULES = [
+    # the DETR transformer of PSGTr / PSGFormer / DETR4Seg: attentions.0 is self-attention
+    (r"^bbox_head\.transformer\.encoder\.layers\.(\d+)\.attentions\.0\.attn" + _E,
+     r"bbox_head.transformer.enc_\1.self_attn"),
+    (r"^bbox_head\.transformer\.encoder\.layers\.(\d+)" + _E, r"bbox_head.transformer.enc_\1"),
+    (r"^bbox_head\.transformer\.decoder([12]?)\.layers\.(\d+)\.attentions\.0\.attn" + _E,
+     r"bbox_head.transformer.dec\1_\2.self_attn"),
+    (r"^bbox_head\.transformer\.decoder([12]?)\.layers\.(\d+)\.attentions\.1\.attn" + _E,
+     r"bbox_head.transformer.dec\1_\2.cross_attn"),
+    (r"^bbox_head\.transformer\.decoder([12]?)\.layers\.(\d+)" + _E,
+     r"bbox_head.transformer.dec\1_\2"),
+    (r"^bbox_head\.transformer\.decoder\.post_norm" + _E, "bbox_head.transformer.post_norm"),
+    (r"^bbox_head\.transformer\.decoder([12])\.post_norm" + _E,
+     r"bbox_head.transformer.dec\1_post_norm"),
+    (r"box_embed\.layers\.(\d)" + _E, r"box_embed.layers_\1"),
     (r"^backbone\.patch_embed\.projection" + _E, "backbone.patch_embed"),
     (r"^backbone\.patch_embed\.norm" + _E, "backbone.patch_norm"),
     (r"^backbone\.stages\.(\d+)\.blocks\.(\d+)" + _E, r"backbone.stage\1_block\2"),
@@ -59,20 +79,29 @@ _RULES = [
     (r"\.norms\.(\d)" + _E, lambda m: f".norm{int(m.group(1)) + 1}"),
     (r"\.ffns\.0\.layers\.0\.0" + _E, ".ffn.fc1"),
     (r"\.ffns\.0\.layers\.1" + _E, ".ffn.fc2"),
-    (r"^bbox_head\.(query_feat|query_embed|level_embed|cls_embed|mask_embed)" + _E,
-     r"bbox_head.transformer_decoder.\1"),
-    (r"(mask_embed|_query_update|pair_embed)\.([024])" + _E,
+    (_M2F_TABLES, r"bbox_head.transformer_decoder.\1"),
+    (r"(mask_embed|_query_update|pair_embed|rel_cls_embed)\.([024])" + _E,
      lambda m: f"{m.group(1)}.layers_{int(m.group(2)) // 2}"),
     (r"\.update_importance\.conv_layers\.(\d)\.0" + _E, r".update_importance.conv\1"),
 ]
 
 
-def flax_path(module_name: str) -> tuple[str, ...]:
-    """The flax module path of the port's module ``module_name``."""
+def flax_path(module_name: str, m2f: bool = True) -> tuple[str, ...]:
+    """The flax module path of the port's module ``module_name``; ``m2f``
+    says that the head owns a Mask2Former decoder (its tables move there)."""
     name = module_name
     for pattern, repl in _RULES:
-        name = re.sub(pattern, repl, name)
+        if m2f or pattern is not _M2F_TABLES:
+            name = re.sub(pattern, repl, name)
     return tuple(name.split("."))
+
+
+def _has_m2f(model: nn.Module) -> bool:
+    """Whether ``model`` holds a Mask2Former decoder (a head or a whole
+    detector that does)."""
+    from pairnet_torch.models.decoders.mask2former_decoder import Mask2FormerDecoder
+
+    return any(isinstance(m, Mask2FormerDecoder) for m in model.modules())
 
 
 def _leaves(tree, prefix=()):
@@ -130,10 +159,11 @@ def tensor_leaves(model: nn.Module, prefix: str = ""):
     (q_proj, k_proj, v_proj); every other tensor of one."""
     T = lambda a: a.T  # noqa: E731
     merges = []  # PatchMerging names: their children's tensors are yielded with them
+    m2f = _has_m2f(model)
     for mname, module in model.named_modules():
         if any(mname.startswith(m + ".") for m in merges):
             continue
-        base = flax_path((prefix + mname).rstrip("."))
+        base = flax_path((prefix + mname).rstrip("."), m2f)
         dst_prefix = f"{mname}." if mname else ""
         if isinstance(module, PatchMerging):
             merges.append(mname)

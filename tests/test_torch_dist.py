@@ -316,3 +316,40 @@ def sharded_scoring(rank, world, config, split, planted, kw, results_out, cli_ar
     for ev in ("sgdet", "PQ"):
         out[f"cli_{ev}"] = test_cli.main(cli_args + ["--eval", ev])
     return out
+
+
+def sharded_cli_scoring(rank, world, cli_args, results_out):
+    """The scoring CLI on this rank's shard: sgdet with ``--save-results``
+    (written by rank 0), then PQ."""
+    from pairnet_torch.tools import test as test_cli
+
+    return {"sgdet": test_cli.main(cli_args + ["--eval", "sgdet", "--save-results", results_out]),
+            "PQ": test_cli.main(cli_args + ["--eval", "PQ"])}
+
+
+def _batch_rows(tree, rows):
+    """Rows ``rows`` of every array of a nested dict / list, as tensors."""
+    if isinstance(tree, dict):
+        return {k: _batch_rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_batch_rows(v, rows) for v in tree]
+    return torch.tensor(np.asarray(tree)[rows])
+
+
+def zoo_loss_shares(rank, world, cases):
+    """Each one-stage head's loss on this rank's rows of the batch with the
+    global normalizers (``reduce`` = the all-reduce sum): ``cases`` maps a
+    head type to (loss config, outputs, batch, points, cum_samples), numpy.
+    Returns per head the losses and the new Seesaw counts."""
+    from pairnet_torch.parallel.mesh import all_reduce_sum
+    from pairnet_torch.train.dispatch import get_loss_fn
+
+    n = len(next(iter(cases.values()))[3]) // world
+    rows = slice(rank * n, (rank + 1) * n)
+    out = {}
+    for head, (cfg, outputs, batch, points, cum) in cases.items():
+        fn = get_loss_fn(head, {"loss": cfg}, reduce=all_reduce_sum)
+        losses, new_cum = fn(_batch_rows(outputs, rows), _batch_rows(batch, rows),
+                             torch.tensor(points[rows]), torch.tensor(cum))
+        out[head] = ({k: float(v) for k, v in losses.items()}, new_cum.numpy())
+    return out

@@ -219,7 +219,7 @@ def test_build_model_equals_flagship(config, tiny):
 @pytest.mark.parametrize("change, error, match", [
     ({"type": "SceneGraphTwoStage"}, NotImplementedError, "model type.*ROADMAP"),
     ({"backbone": {"type": "ResNeXt"}}, NotImplementedError, "backbone.*ROADMAP"),
-    ({"bbox_head": {"type": "PSGTrHead"}}, NotImplementedError, "head.*ROADMAP"),
+    ({"bbox_head": {"type": "CrossHeadBBox"}}, NotImplementedError, "head.*ROADMAP.*bbox"),
     # every matrix learner of the JAX package is ported: only an unknown one raises
     ({"bbox_head": {"mapper": "conv_huge"}}, KeyError, "unknown matrix learner"),
 ], ids=["change0-model type", "change1-backbone", "change2-head", "change3-mapper"])

@@ -216,3 +216,132 @@ def attention_mask_margin(port, images):
     """The least |logit| of :func:`attention_mask_logits`: every mask bit
     is decided by a margin of this size."""
     return min(float(np.abs(am).min()) for am in attention_mask_logits(port, images))
+
+
+def zoo_batch(seed=0, B=2, H=64, W=96, G=6, Rm=8, num_classes=7, num_predicates=5):
+    """A padded GT batch (numpy) for the one-stage zoo's losses: the image,
+    labels, stride-4 f32 masks, validity, relations (1-based predicates),
+    xyxy pixel boxes of the masks (an empty mask's box is zero) and the
+    unpadded image shape. Every valid GT segment and every relation's
+    endpoints are among the first 4 segments."""
+    rng = np.random.default_rng(seed)
+    masks = (rng.uniform(size=(B, G, H // 4, W // 4)) > 0.7).astype(np.float32)
+    boxes = np.zeros((B, G, 4), np.float32)
+    for b in range(B):
+        for g in range(G):
+            ys, xs = np.nonzero(masks[b, g])
+            if len(ys):
+                boxes[b, g] = [xs.min() * 4, ys.min() * 4, (xs.max() + 1) * 4, (ys.max() + 1) * 4]
+    gt_valid = np.zeros((B, G), bool)
+    gt_valid[:, :4] = True
+    rel_valid = np.zeros((B, Rm), bool)
+    rel_valid[:, :5] = True
+    rels = np.stack([rng.integers(0, 4, size=(B, Rm)), rng.integers(0, 4, size=(B, Rm)),
+                     rng.integers(1, num_predicates + 1, size=(B, Rm))], axis=-1)
+    return {
+        "image": rng.normal(size=(B, H, W, 3)).astype(np.float32),
+        "gt_labels": rng.integers(0, num_classes, size=(B, G)).astype(np.int32),
+        "gt_masks": masks,
+        "gt_valid": gt_valid,
+        "gt_rels": rels.astype(np.int32),
+        "rel_valid": rel_valid,
+        "gt_boxes": boxes,
+        "image_shape": np.asarray([[H, W]] * B, np.int32),
+    }
+
+
+def zoo_pair(jax_head, port_head, kw, images, seed=2):
+    """A tiny one-stage model (ResNet-26 at base width 8 and the head with
+    ``kw``) in both packages on the same seeded-noise weights: (JAX model,
+    its variables, its outputs on ``images`` as numpy, the port model, its
+    outputs as numpy; per-layer lists kept)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from pairnet_torch.models.backbones.resnet import ResNet
+    from pairnet_torch.models.frameworks.psgtr import PSGTr
+    from pairnet_torch.utils.from_jax import load_jax_variables
+    from pairnet_tpu.models.backbones.resnet import ResNet as JResNet
+    from pairnet_tpu.models.frameworks.psgtr import PSGTr as JPSGTr
+
+    jm = JPSGTr(backbone=JResNet(depth=26, base_width=8), bbox_head=jax_head(**kw))
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    variables = perturb(numpy_init(shapes, seed), seed=seed, std=0.05)
+    ref = jax.tree_util.tree_map(np.asarray, jax.jit(jm.apply)(variables, images))
+    bb = ResNet(depth=26, base_width=8)
+    port = load_jax_variables(PSGTr(bb, port_head(bb.out_channels, **kw)).eval(), variables)
+    with torch.no_grad():
+        out = tree_numpy(port(torch.tensor(images)))
+    return jm, variables, ref, port, out
+
+
+def numpy_init(shapes, seed):
+    """Seeded numpy variables for the flax shape tree ``shapes``, by leaf
+    name as flax's defaults: lecun-normal kernels, zero biases, unit norm
+    scales, N(0, 1) tables; frozen BN at the identity; MSDA's sampling
+    offsets and attention weights zero (their bias keeps the zero init:
+    ``perturb`` moves everything after). Cheaper than running ``init``."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(name, shape):
+        if name == "kernel":
+            return rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+        if name in ("bias", "running_mean"):
+            return np.zeros(shape)
+        if name in ("scale", "running_var", "weight"):
+            return np.ones(shape)
+        return rng.normal(size=shape)
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            return {k: walk(v, path + (k,)) for k, v in sorted(node.items())}
+        arr = leaf(path[-1], node.shape)
+        if any(p in ("sampling_offsets", "attention_weights") for p in path):
+            arr = np.zeros(node.shape)
+        return arr.astype(np.float32)
+
+    return walk(shapes, ())
+
+
+def tree_numpy(tree):
+    """Tensors of nested dicts / lists as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_numpy(v) for v in tree]
+    return tree.detach().numpy()
+
+
+def tree_torch(tree, grad=False):
+    """numpy leaves of nested dicts / lists as torch tensors (float leaves
+    requiring grad when ``grad``)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: tree_torch(v, grad) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_torch(v, grad) for v in tree]
+    t = torch.tensor(np.asarray(tree))
+    return t.requires_grad_() if grad and t.is_floating_point() else t
+
+
+def tree_leaves(tree, prefix=""):
+    """(dotted name, leaf) of nested dicts / lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def assert_close_rel(got, want, rtol, what=""):
+    """max |got - want| <= rtol * max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bound = rtol * max(1.0, float(np.abs(want).max(initial=0.0)))
+    err = float(np.abs(got - want).max(initial=0.0))
+    assert err <= bound, (what, err, bound)

@@ -26,7 +26,7 @@ from pairnet_torch.ops.hungarian import batched_hungarian  # noqa: E402
 from pairnet_torch.ops.masked_attn import masked_flash_attention  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "pairnet_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "pairnet_tpu"}
 
 
 def _port_files():
@@ -78,9 +78,13 @@ def test_import_leaves_jax_out():
         "import sys, pairnet_torch.flagship, pairnet_torch.bench, pairnet_torch.tools.test, "
         "pairnet_torch.evaluation.runner, pairnet_torch.train.builder, "
         "pairnet_torch.tools.train, pairnet_torch.data.sg, pairnet_torch.tools.vis_results, "
-        "pairnet_torch.utils.visualize, pairnet_torch.models.backbones.swin; "
+        "pairnet_torch.utils.visualize, pairnet_torch.models.backbones.swin, "
+        "pairnet_torch.models.heads.psgtr_head, pairnet_torch.models.heads.psgformer_head, "
+        "pairnet_torch.models.heads.baseline_head, pairnet_torch.models.heads.psgtr2_head, "
+        "pairnet_torch.models.heads.detr4seg_head, pairnet_torch.models.heads.diagnostic, "
+        "pairnet_torch.ops.boxes, pairnet_torch.train.dispatch; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
+        "('jax', 'flax', 'orbax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 

@@ -128,13 +128,17 @@ def test_profiler_knob_writes_a_trace(tmp_path, monkeypatch):
 
 def test_loss_dispatch():
     """PairNetHead's loss takes the config's loss options (``num_points``
-    is the sampling's); the other heads raise, naming ROADMAP A.7."""
+    is the sampling's); the one-stage zoo dispatches too; the bbox head and
+    the two-stage heads raise, naming ROADMAP A.7."""
     cfg = load_config(TINY)
     fn = get_loss_fn("PairNetHead", cfg)
     assert fn.num_points == 256 and fn.keywords == {"with_seg_losses": True}
     assert get_loss_fn("PairNetHead", {}).num_points == 12544
-    with pytest.raises(NotImplementedError, match="A.7"):
-        get_loss_fn("PSGTrHead", cfg)
+    assert get_loss_fn("PSGTrHead", {}).num_points == 0
+    assert get_loss_fn("BaselineHead", {"loss": {"use_seesaw": True}}).cum_size(56) == 57
+    for head in ("CrossHeadBBox", "IMPHead"):
+        with pytest.raises(NotImplementedError, match="A.7"):
+            get_loss_fn(head, cfg)
 
 
 @pytest.fixture(scope="module")
