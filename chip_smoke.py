@@ -153,11 +153,43 @@ published R-50 config with seeded random weights:
      backward against the plain MSDA within ``TOL_TRAIN_REL`` (losses x
      max(1, |plain|), each MSDA gradient x its max), the kernel run's
      attention masks and Hungarian assignments replayed.
-Then one JSON line of kernels, one of serving, one of training, one of
+Phases 25-28 drive the box Pair-Net (``CrossHeadBBox`` on Deformable-DETR,
+the VG / OIv6 / COCO configs), built by ``build_model`` from the
+published configs at full width with seeded random weights:
+ 25. the MSDA kernels at the box head's geometry against their plain
+     versions (phase 2's tolerances), batch 2, the neck's 4 levels at
+     800x1344 (S = 22323), wide offsets: the encoder's Q = S, then the
+     decoder's Q = 100 on 4-d box references spread up to 1.5 box sizes;
+     the exact forward (f32, bf16 values), the int4 quantize and gather,
+     the backward (f32, bf16, bf16_grad); ms and bound at each geometry.
+ 26. serve ``pairnet_r101_vg.py``, ``pairnet_rnext101_vg.py`` and
+     ``cross_r50_oiv6.py`` (601 classes) at 800x1344, batch 2, bf16, int4:
+     12 int4 quantize and 12 gather launches a forward, no plain call;
+     finite outputs, boxes in [0, 1], 100 triplets per image; ms per batch
+     and the R-101 model's ms by part. Then an f32 forward (batch 1, TF32
+     off) through the exact kernel against the plain MSDA within
+     ``TOL_FORWARD_REL``, the three discrete steps (proposal top-k, query
+     re-rank, pair top-k) replayed, their decided ranks counted.
+ 27. ``pairnet_torch.tools.test.main`` on ``pairnet_r101_vg.py`` over phase
+     9's 16 images read as a box-only VG split, batch 8, bf16 int4: sgdet
+     with ``detection_method="bbox"``, JAX's key set, finite values, 12 + 12
+     int4 launches a forward.
+ 28. ``pairnet_torch.tools.train.main`` on ``pairnet_r101_vg.py`` and the
+     detection-only ``od_r101_vg.py`` (batch 2, f32) for one epoch of 2
+     steps over phase 24's 4 train images: 12 exact forward and 12 bwd2
+     launches and 2 Hungarian launches a step (the detection-only step's
+     encoder matcher, 64 GT boxes against the 22323 proposals, through the
+     long instance), no solver sync, no plain call; then the long
+     instance on that step's own costs, equal to the plain loop's, with
+     its ms, search steps and ns a step; and each config's f32 step on a
+     seeded batch of 2 split into forward, targets, loss, backward and
+     optimizer (CUDA events), with the card's busy share (profiler).
+Then one JSON line of kernels (with this path's entries, ``<name>@bbox``
+and ``hungarian_long@od``), one of serving, one of training, one of
 evaluation, one of the train CLI, one of Swin-B and the other heads
 (``swin``), one of phases 19-21 (``parallel``), one of phases 22-24
-(``zoo``), the card's name and power limit, and the final line
-{"ok": true, "device": {...}}.
+(``zoo``), one of phases 25-28 (``bbox``), the card's name and power
+limit, and the final line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -257,17 +289,39 @@ def flash_inputs(B, Lk, dtype, seed, dev):
     return q, k, v, mask
 
 
-def inside_corners(locs):
+def inside_corners(locs, shapes=SHAPES):
     """Bilinear corners of ``locs`` (B, Q, H, L, P, 2) inside their level's
-    plane: the taps whose work the backward has to do."""
+    plane (``shapes``): the taps whose work the backward has to do."""
     n = 0
-    for lvl, (h, w) in enumerate(SHAPES):
+    for lvl, (h, w) in enumerate(shapes):
         x0 = torch.floor(locs[..., lvl, :, 0] * w - 0.5)
         y0 = torch.floor(locs[..., lvl, :, 1] * h - 0.5)
         for dx in (0, 1):
             for dy in (0, 1):
                 n += int(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)).sum())
     return n
+
+
+def touched_rows(locs, shapes=SHAPES):
+    """Distinct (image, token, head) value rows that the in-plane bilinear
+    corners of ``locs`` (B, Q, H, L, P, 2) read: the rows a gather must
+    fetch at least once, however many taps share them."""
+    B, _, H = locs.shape[:3]
+    b = torch.arange(B, device=locs.device).view(B, 1, 1, 1)
+    hd = torch.arange(H, device=locs.device).view(1, 1, H, 1)
+    S = sum(h * w for h, w in shapes)
+    rows, start = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(locs[..., lvl, :, 0] * w - 0.5).long()
+        y0 = torch.floor(locs[..., lvl, :, 1] * h - 0.5).long()
+        for dx in (0, 1):
+            for dy in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                flat = (b * S + start + y * w + x) * H + hd
+                rows.append(flat[inside])
+        start += h * w
+    return int(torch.unique(torch.cat(rows)).numel())
 
 
 class Replay:
@@ -1318,6 +1372,485 @@ def zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_pl
             "seconds": zoo_s}
 
 
+BBOX_DIR = os.path.join(ZOO_DIR, "deformable_detr")
+BBOX_CONFIG = os.path.join(BBOX_DIR, "pairnet_r101_vg.py")  # the slice's flagship
+BBOX_SERVE = {"pairnet_r101_vg": "deformable_detr/pairnet_r101_vg.py",  # phase 26
+              "pairnet_rnext101_vg": "deformable_detr/pairnet_rnext101_vg.py",
+              "cross_r50_oiv6": "deformable_detr/cross_r50_oiv6.py"}
+# the neck's 4 levels at 800x1344: strides 8, 16, 32 and the extra 64
+BBOX_SHAPES = ((100, 168), (50, 84), (25, 42), (13, 21))
+BBOX_Q = 100  # the decoder's queries
+# phase 28: 4 train images at 800x1333, one epoch of 2 steps at batch 2
+BBOX_TRAIN_SPLIT = ZOO_TRAIN_SPLIT
+# phase 27: phase 9's 16 test images, read as a box-only VG split
+BBOX_SCORE_SPLIT = SCORE_SPLIT
+
+
+def bbox_msda_inputs(B, Q, dtype, seed, dev, box=False):
+    """MSDA inputs at the box head's 4 levels: value (B, S, H, D), locs,
+    weights. Point references: locations over [-0.6, 1.6] (wide). Box
+    references (the decoder's, Q = 100): random boxes, centres in [0, 1],
+    w and h in [0.05, 1], offsets of up to 3 P, so loc = centre + offset /
+    P * wh / 2 spreads up to 1.5 box sizes and many taps leave the plane."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = sum(h * w for h, w in BBOX_SHAPES)
+    L = len(BBOX_SHAPES)
+    value = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    if box:
+        ref = torch.rand((B, Q, 1, L, 1, 4), generator=g, device=dev)
+        ref[..., 2:] = ref[..., 2:] * 0.95 + 0.05
+        off = (torch.rand((B, Q, H, L, P, 2), generator=g, device=dev) * 2 - 1) * 3 * P
+        locs = ref[..., :2] + off / P * ref[..., 2:] * 0.5
+    else:
+        locs = torch.rand((B, Q, H, L, P, 2), generator=g, device=dev) * 2.2 - 0.6
+    w = torch.rand((B, Q, H, L, P), generator=g, device=dev)
+    w = w / w.sum(dim=(-1, -2), keepdim=True)
+    return value, locs, w
+
+
+class TopkRecorder:
+    """Stands in for ``pairnet_bbox_head.topk_first``: records the three
+    discrete steps of a forward (proposal top-k, query re-rank, pair
+    top-k), then replays the recorded picks in a second run, counting the
+    picks that run would have made otherwise and the ranks each step
+    decides by a margin of 10x the gap between the two runs' inputs."""
+
+    def __init__(self, fn):
+        self.fn, self.kept, self.replay = fn, [], None
+        self.flips, self.decided = [], []
+
+    def __call__(self, x, k):
+        own = self.fn(x, k)
+        if self.replay is None:
+            self.kept.append((x.detach().clone(), own))
+            return own
+        x0, kept = next(self.replay)
+        tol = 10 * float((x.float() - x0.float()).abs().max()) + 1e-6
+        self.flips.append(int((own != kept).sum()))
+        # a -inf sentinel after the values: the last of k = all ranks has
+        # no successor to be confused with
+        row = torch.cat([x[0].flatten().double(), x.new_full((1,), -math.inf).double()])
+        self.decided.append(int(decided_ranks(row, k, tol).sum()))
+        return kept
+
+    def start_replay(self):
+        self.replay = iter(self.kept)
+
+
+def bbox_breakdown(model, images, cuda_ms):
+    """Where a box Pair-Net forward's time goes (CUDA events, each part
+    alone on the inputs the forward gives it): backbone, neck, the 4-level
+    encoder, and the rest of the head (proposals, decoder, PPN, Relation
+    Fusion)."""
+    head = model.bbox_head
+    x = images.permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        feats = model.backbone(x)
+        levels = model.neck(feats)
+        parts = {"backbone": cuda_ms(torch, lambda: model.backbone(x), 3),
+                 "neck": cuda_ms(torch, lambda: model.neck(feats), 3),
+                 "encoder": cuda_ms(torch, lambda: head.encode(levels), 3),
+                 "head": cuda_ms(torch, lambda: head(levels), 3)}
+    parts["decoder_ppn_relation"] = parts["head"] - parts["encoder"]
+    return parts
+
+
+def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
+    """Phases 25-28 (see the module doc): the box Pair-Net (CrossHeadBBox on
+    Deformable-DETR) served, scored and trained at full width. ``record``
+    and ``compare`` (the kernel-vs-plain checks by kernel) are main's,
+    ``count_plain_calls`` and ``plain_calls`` its count of plain-version
+    calls, ``tf32`` the TF32 flags to restore. Returns (the ``bbox`` JSON
+    entry, the kernel entries of this path)."""
+    import shutil
+
+    from pairnet_torch.config import apply_overrides, load_config
+    from pairnet_torch.flagship import perturb_deform_kernels, set_deform_impl
+    from pairnet_torch.models.frameworks.psgtr import build_model
+    from pairnet_torch.models.heads import pairnet_bbox_head as bbox_mod
+    from pairnet_torch.ops import hungarian as hungarian_mod
+    from pairnet_torch.ops.deform_attn import ms_deform_attn_plain
+    from pairnet_torch.ops.deform_attn_bwd import (
+        deform_attn_bwd,
+        ms_deform_attn_bwd_plain,
+    )
+    from pairnet_torch.ops.deform_attn_exact import deform_attn_exact
+    from pairnet_torch.ops.deform_attn_int4 import (
+        int4_gather,
+        int4_gather_plain,
+        int4_quantize,
+        int4_quantize_plain,
+    )
+    from pairnet_torch.ops.hungarian import (
+        SHORT_COLS,
+        batched_hungarian,
+        solve_n_le_m_cuda,
+        solve_n_le_m_plain,
+    )
+    from pairnet_torch.tools import test as test_cli
+    from pairnet_torch.tools import train as train_cli
+    from pairnet_torch.tools.msda_kernels import cuda_ms
+    from pairnet_torch.train.dispatch import get_postprocess_fn
+
+    dev = torch.device(DEVICE)
+    t_bbox = time.perf_counter()
+    shapes, L = BBOX_SHAPES, len(BBOX_SHAPES)
+    S = sum(h * w for h, w in shapes)
+
+    def reset():
+        deform_attn_exact.launches = int4_quantize.launches = int4_gather.launches = 0
+        batched_hungarian.launches = batched_hungarian.long_launches = 0
+        deform_attn_bwd.launches.clear()
+        plain_calls.clear()
+
+    def counts():
+        return {"deform_attn_exact": deform_attn_exact.launches,
+                "int4_quantize": int4_quantize.launches, "int4_gather": int4_gather.launches,
+                "deform_attn_bwd": dict(deform_attn_bwd.launches),
+                "hungarian": batched_hungarian.launches,
+                "hungarian_long": batched_hungarian.long_launches, "plain": dict(plain_calls)}
+
+    def tap_flops(lc):
+        return 10 * lc.shape[0] * lc.shape[1] * H * D * L * P
+
+    def touched_bytes(value, lc):  # the value rows this run's taps read, once
+        return touched_rows(lc, shapes) * value.shape[3] * value.element_size()
+
+    # --- (25) the kernels at the box head's geometry, against their plain versions ---
+    geo = {}
+    for gname, Q, box in (("encoder Q=S", S, False), (f"decoder Q={BBOX_Q} box refs", BBOX_Q, True)):
+        v32, lc, wt = bbox_msda_inputs(2, Q, torch.float32, 25, dev, box)
+        vb = v32.to(torch.bfloat16)
+        g = torch.randn((2, Q, H * D), device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(26))
+        vbytes = None if Q == S else touched_bytes(v32, lc)
+        e = {}
+        _, e["exact f32"] = record(
+            "deform_attn_exact", None, lambda: deform_attn_exact(v32, shapes, lc, wt),
+            lambda: ms_deform_attn_plain(v32, shapes, lc, wt), compare["exact_f32"],
+            (v32, lc, wt), tap_flops(lc), f"f32, {gname}, max|d|", phase=25,
+            in_bytes=None if vbytes is None else vbytes + nbytes(lc, wt))
+        _, e["exact bf16"] = record(
+            "deform_attn_exact", None, lambda: deform_attn_exact(vb, shapes, lc, wt),
+            lambda: ms_deform_attn_plain(vb, shapes, lc, wt), compare["exact_bf16"],
+            (vb, lc, wt), tap_flops(lc), f"bf16 values, {gname}, rel", phase=25,
+            in_bytes=None if vbytes is None else vbytes // 2 + nbytes(lc, wt))
+        (codes, scales), e["int4_quantize"] = record(
+            "int4_quantize", None, lambda: int4_quantize(vb, shapes),
+            lambda: int4_quantize_plain(vb, shapes), compare["quantize"], (vb,),
+            5 * vb.numel(), f"bf16, {L} levels, codes and scales", phase=25)
+        _, e["int4_gather"] = record(
+            "int4_gather", None, lambda: int4_gather(codes, scales, shapes, lc, wt),
+            lambda: int4_gather_plain(codes, scales, shapes, lc, wt), compare["gather"],
+            (codes, scales, lc, wt), tap_flops(lc), f"{gname}, max|d|, within 1 bf16 ulp",
+            phase=25, in_bytes=None if vbytes is None else vbytes // 4 + nbytes(scales, lc, wt))
+        for inst, val, bwd in (("f32", v32, "exact"), ("bf16", vb, "exact"),
+                               ("bf16_grad", vb, "bf16_grad")):
+            ops = BWD_OPS_PER_CORNER[bwd] * D * inside_corners(lc, shapes)
+            _, e[f"deform_attn_bwd ({inst})"] = record(
+                f"deform_attn_bwd ({inst})", None,
+                lambda: deform_attn_bwd(val, shapes, lc, wt, g, bwd),
+                lambda: ms_deform_attn_bwd_plain(val, shapes, lc, wt, g,
+                                                 bf16_grad=bwd == "bf16_grad"),
+                compare["bwd"], (val, lc, wt, g), ops, f"{gname}, max|d|", phase=25)
+        geo[gname] = {k: {f: r[f] for f in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")} for k, r in e.items()}
+        del v32, vb, lc, wt, g, codes, scales
+        torch.cuda.empty_cache()
+    log(f"[25] {smi}: the MSDA kernels at the box head's geometry (batch 2, levels {shapes}, "
+        f"S = {S}, wide offsets) within phase 2's tolerances; ms (bound): " + "; ".join(
+            f"{gn}: " + ", ".join(f"{k} {r['ms']:.4f} ({r['bound_ms']:.4f})" for k, r in v.items())
+            for gn, v in geo.items()))
+
+    # --- (26) serving at full width, bf16, int4; then f32 exact vs plain ---
+    g = torch.Generator(device=dev).manual_seed(27)
+    images = torch.randn((2, *IMG, 3), generator=g, device=dev)
+
+    def bbox_model(rel, dtype, opts=()):
+        cfg = apply_overrides(load_config(os.path.join(ZOO_DIR, rel)), list(opts))
+        return perturb_deform_kernels(build_model(cfg.model, device=dev)).to(dtype), cfg
+
+    post = get_postprocess_fn("CrossHeadBBox")
+    served = {}
+    for name, rel in BBOX_SERVE.items():
+        model, cfg = bbox_model(rel, torch.bfloat16)
+        set_deform_impl(model, "int4")
+        imgs = images.to(torch.bfloat16)
+
+        def serve_bbox():
+            with torch.inference_mode():
+                out = model(imgs)
+                return out, [post(out, b) for b in range(imgs.shape[0])]
+
+        serve_bbox()  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        count_plain_calls(True)
+        out, preds = serve_bbox()
+        torch.cuda.synchronize()
+        count_plain_calls(False)
+        got = counts()
+        want = {"deform_attn_exact": 0, "int4_quantize": 12, "int4_gather": 12,
+                "deform_attn_bwd": {}, "hungarian": 0, "hungarian_long": 0, "plain": {}}
+        check(got == want, f"{name} serving launches {got}")
+        C = cfg.num_object_classes
+        for key, shape in {"cls": (2, 100, C), "box": (2, 100, 4), "rel": (2, 100,
+                           cfg.num_relation_classes), "importance": (2, 100, 100),
+                           "enc_cls": (2, S, C), "sub_pos": (2, 100)}.items():
+            check(tuple(out[key].shape) == shape, f"{name}: {key} {tuple(out[key].shape)}")
+        for key, val in out.items():
+            if torch.is_tensor(val):
+                check(bool(torch.isfinite(val.float()).all()), f"{name}: {key} finite")
+        check(bool(((out["box"] >= 0) & (out["box"] <= 1)).all()), f"{name}: boxes in [0, 1]")
+        check(len(preds) == 2 and all(tuple(p.labels.shape) == (200,)
+                                      and tuple(p.rel_pairs.shape) == (100, 2)
+                                      and bool(((p.boxes >= 0) & (p.boxes <= 1)).all())
+                                      for p in preds), f"{name}: 100 triplets per image")
+        served[name] = {"config": rel, "launches": got,
+                        "ms_per_batch_of_2": cuda_ms(torch, serve_bbox, 3)}
+        if name == "pairnet_r101_vg":
+            serving_launches = got
+            served[name]["breakdown_ms"] = bbox_breakdown(model, imgs, cuda_ms)
+        del model, out, preds
+        torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model32, _ = bbox_model("deformable_detr/pairnet_r101_vg.py", torch.float32)
+    topk = TopkRecorder(bbox_mod.topk_first)
+    bbox_mod.topk_first = topk
+    outs = {}
+    try:
+        for impl in ("exact", "plain"):
+            set_deform_impl(model32, impl)
+            if impl == "plain":
+                topk.start_replay()
+            reset()
+            with torch.inference_mode():
+                outs[impl] = model32(images[:1])
+            torch.cuda.synchronize()
+            outs[impl + "_launches"] = counts()["deform_attn_exact"]
+    finally:
+        bbox_mod.topk_first = topk.fn
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(outs["exact_launches"] == 12 and outs["plain_launches"] == 0,
+          f"f32 forward exact launches {outs['exact_launches']}, plain {outs['plain_launches']}")
+    fwd_err = {}
+    for key in ("enc_cls", "enc_box", "cls", "box", "importance", "queries", "rel"):
+        ref = outs["plain"][key].float()
+        fwd_err[key] = float((outs["exact"][key].float() - ref).abs().max())
+        bound = TOL_FORWARD_REL * max(1.0, float(ref.abs().max()))
+        check(fwd_err[key] <= bound, f"bbox f32 {key}: exact vs plain {fwd_err[key]} > {bound}")
+    steps3 = ("proposal top-k", "query re-rank", "pair top-k")
+    decided = dict(zip(steps3, topk.decided))
+    flips = dict(zip(steps3, topk.flips))
+    del model32, outs
+    torch.cuda.empty_cache()
+    log(f"[26] {smi}: box Pair-Net served at full width, {IMG[0]}x{IMG[1]} batch 2 bf16 int4: "
+        + ", ".join(f"{n} {v['ms_per_batch_of_2']:.2f} ms" for n, v in served.items())
+        + f"; launches per forward {serving_launches}; boxes in [0, 1], 100 triplets per image; "
+        f"pairnet_r101_vg ms {served['pairnet_r101_vg']['breakdown_ms']}; f32 batch 1 exact vs "
+        f"plain (TF32 off): max|d| { {k: f'{v:.3g}' for k, v in fwd_err.items()} } (tol "
+        f"{TOL_FORWARD_REL} x max(1, max|plain|)); decided ranks {decided} of "
+        f"{[100, 100, 100]}; picks the plain run would make otherwise (replayed) {flips}")
+
+    # --- (27) scoring with the CLI: bbox sgdet, bf16 int4 ---
+    forwards = [0]
+    orig_apply_fn = test_cli.make_apply_fn
+
+    def counting_apply_fn(*args):
+        apply_fn = orig_apply_fn(*args)
+
+        def counted(imgs):
+            forwards[0] += 1
+            return apply_fn(imgs)
+        return counted
+
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN")}
+    test_cli.make_apply_fn = counting_apply_fn
+    torch.cuda.synchronize()
+    reset()
+    count_plain_calls(True)
+    try:
+        metrics = test_cli.main([BBOX_CONFIG, "--eval", "sgdet", "--batch-size", str(BATCH),
+                                 "--dtype", "bf16", "--device", DEVICE, "--cfg-options",
+                                 *BBOX_SCORE_SPLIT])
+        torch.cuda.synchronize()
+    finally:
+        count_plain_calls(False)
+        test_cli.make_apply_fn = orig_apply_fn
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    got, nf = counts(), forwards[0]
+    check(nf == -(-SCORE_IMAGES // BATCH), f"{nf} forwards for {SCORE_IMAGES} images")
+    per_fwd = {k: v / nf for k, v in got.items() if k in ("int4_quantize", "int4_gather",
+                                                           "deform_attn_exact")}
+    check(per_fwd == {"deform_attn_exact": 0, "int4_quantize": 12, "int4_gather": 12}
+          and not got["plain"], f"bbox scoring launches per forward {per_fwd}, plain "
+          f"{got['plain']}")
+    check(set(metrics) == SGDET_KEYS, f"bbox sgdet keys {sorted(set(metrics) ^ SGDET_KEYS)}")
+    check(all(math.isfinite(v) for v in metrics.values()), f"bbox sgdet metrics {metrics}")
+    log(f"[27] scored {os.path.relpath(BBOX_CONFIG)} on phase 9's {SCORE_IMAGES} images read as "
+        f"a box-only VG split, batch {BATCH} bf16 int4, sgdet with detection_method='bbox': "
+        f"{metrics['sgdet_images_per_s']} img/s; key set as the JAX engine's, values finite; "
+        f"launches per forward {per_fwd}")
+
+    # --- (28) training with the CLI: the Pair-Net losses, then detection only ---
+    trained = {}
+    long_costs = []
+    orig_solve = hungarian_mod._solve_n_le_m
+
+    def recording_solve(cost):
+        if cost.shape[2] > SHORT_COLS and not long_costs:
+            long_costs.append(cost.detach().clone())
+        return orig_solve(cost)
+
+    saved = {k: os.environ.pop(k, None) for k in ("PAIRNET_DEFORM_IMPL", "PAIRNET_FLASH_ATTN",
+                                                  "PAIRNET_DEBUG_NANS")}
+    os.environ["PAIRNET_DEBUG_NANS"] = "1"
+    hungarian_mod._solve_n_le_m = recording_solve
+    try:
+        for rel, n_long in (("deformable_detr/pairnet_r101_vg.py", 0),
+                            ("deformable_detr/od_r101_vg.py", 1)):
+            work = tempfile.mkdtemp(prefix="chip_smoke_bbox_")
+            try:
+                torch.cuda.synchronize()
+                reset()
+                syncs0 = batched_hungarian.syncs
+                count_plain_calls(True)
+                try:
+                    summary = train_cli.main([os.path.join(ZOO_DIR, rel), "--work-dir", work,
+                                              "--device", DEVICE, "--max-epochs", "1",
+                                              "--cfg-options", *BBOX_TRAIN_SPLIT])
+                finally:
+                    count_plain_calls(False)
+                torch.cuda.synchronize()
+                got, steps = counts(), summary["steps"]
+                want = {"deform_attn_exact": 12 * steps, "int4_quantize": 0, "int4_gather": 0,
+                        "deform_attn_bwd": {"f32": 12 * steps}, "hungarian": 2 * steps,
+                        "hungarian_long": n_long * steps, "plain": {}}
+                check(steps == 2, f"{rel}: {steps} steps")
+                check(got == want, f"{rel} train CLI launches {got}, expected {want}")
+                check(batched_hungarian.syncs == syncs0, f"{rel}: the Hungarian synced")
+                check(all(math.isfinite(v) for v in summary["last"].values()),
+                      f"{rel} losses {summary['last']}")
+                trained[rel] = {"steps": steps, "s_per_step": summary["seconds"] / steps,
+                                "launches": got, "losses": summary["last"]}
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+    finally:
+        hungarian_mod._solve_n_le_m = orig_solve
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    check(len(long_costs) == 1, "the detection-only step gave the long instance no problem")
+    cost = long_costs[0]
+    B_, n_, m_ = cost.shape
+    got_r2c, steps_t = solve_n_le_m_cuda(cost)
+    want_r2c = solve_n_le_m_plain(cost)
+    n_diff = int((got_r2c != want_r2c).sum())
+    check(n_diff == 0, f"long Hungarian on the step's costs: {n_diff} assignments differ")
+    hung_long = {
+        "solved_as": [B_, n_, m_], "max_abs_err": float(n_diff),
+        "ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 10),
+        "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 10, spin=True),
+        "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(cost), 1),
+        "bound_ms": (cost.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3,
+        "search_steps": int(steps_t.sum()), "search_steps_max": int(steps_t.max())}
+    hung_long["ns_per_step"] = hung_long["device_ms"] * 1e6 / max(hung_long["search_steps_max"], 1)
+
+    # where a step's time goes: each config's f32 step (exact MSDA) on
+    # bench's seeded batch of 2 with boxes from its stride-4 masks, the
+    # phases by CUDA events at the step's boundaries, the card's busy share
+    # by the profiler
+    from pairnet_torch.bench import device_profile, time_train, train_batch, train_phase_ms
+    from pairnet_torch.ops.boxes import masks_to_boxes
+    from pairnet_torch.train.optim import build_optimizer
+    from pairnet_torch.train.trainer import TrainState, make_train_step, to_device
+
+    step_split = {}
+    for rel in ("deformable_detr/pairnet_r101_vg.py", "deformable_detr/od_r101_vg.py"):
+        model, cfg = bbox_model(rel, torch.float32)
+        set_deform_impl(model, "exact")
+        batch = to_device(train_batch(2, IMG), dev)
+        batch["gt_labels"] = batch["gt_labels"].clamp_max(cfg.num_object_classes - 1)
+        batch["gt_rels"][..., 2].clamp_(1, cfg.num_relation_classes)
+        batch["gt_boxes"] = torch.stack([masks_to_boxes(m.float()) * 4 for m in batch["gt_masks"]])
+        batch["image_shape"] = torch.tensor([IMG] * 2, dtype=torch.int32, device=dev)
+        events = []
+
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        optimizer = build_optimizer(model)
+        state = TrainState(model, optimizer, cfg.num_relation_classes)
+        step = make_train_step(model, optimizer, dict(cfg.get("loss", {})),
+                               head_type="CrossHeadBBox", on_phase=mark)
+        ms, peak = time_train(step, state, batch, 3)
+        phases = train_phase_ms(events, step, state, batch)
+        prof = device_profile(lambda: step(state, batch))
+        step_split[rel] = {"ms_per_step": ms, "phase_ms": phases, "peak_gib": peak / 2 ** 30,
+                           "device_busy_share": prof["kernel_ms"] / ms,
+                           "kernels_launched": prof["kernels_launched"]}
+        del model, state, step, optimizer, batch
+        torch.cuda.empty_cache()
+    bbox_s = time.perf_counter() - t_bbox
+    log(f"[28] train CLI, one epoch of 2 steps at batch 2 f32 over 4 train images at 800x1333: "
+        + ", ".join(f"{p} {v['s_per_step']:.3f} s/step, launches {v['launches']}"
+                    for p, v in trained.items())
+        + f"; no solver sync; the long Hungarian on the detection-only step's encoder costs "
+        f"({B_}x{n_}x{m_}): equal to the plain loop's, {hung_long['ms']:.4f} ms (spun "
+        f"{hung_long['device_ms']:.4f}), {hung_long['search_steps_max']} search steps "
+        f"({hung_long['ns_per_step']:.0f} ns a step), plain loop {hung_long['plain_ms']:.1f} "
+        f"ms, bound {hung_long['bound_ms']:.5f} ms; the f32 step on a seeded batch of 2: "
+        + ", ".join(f"{p} {v['ms_per_step']:.1f} ms (phases "
+                    f"{ {k: round(x, 2) for k, x in v['phase_ms'].items()} }, busy "
+                    f"{v['device_busy_share']:.3f}, {v['kernels_launched']} kernels)"
+                    for p, v in step_split.items())
+        + f"; phases 25-28 took {bbox_s:.1f} s")
+
+    # this path's kernel entries: launches from its runs (serving 26, training
+    # 28), timings at the encoder geometry, both geometries kept
+    pair_train = trained["deformable_detr/pairnet_r101_vg.py"]["launches"]
+    od_train = trained["deformable_detr/od_r101_vg.py"]["launches"]
+    enc, decg = geo["encoder Q=S"], geo[f"decoder Q={BBOX_Q} box refs"]
+    entries = []
+    for name, key, launches, src, rep in (
+            ("deform_attn_exact@bbox", "exact f32", pair_train["deform_attn_exact"],
+             "deform_attn_exact.cu", "pairnet_tpu/ops/pallas_deform_attn_v6.py:171"),
+            ("int4_quantize@bbox", "int4_quantize", serving_launches["int4_quantize"],
+             "deform_attn_quant.cu", "pairnet_tpu/ops/pallas_deform_attn_v16.py:89"),
+            ("int4_gather@bbox", "int4_gather", serving_launches["int4_gather"],
+             "deform_attn_quant.cu", "pairnet_tpu/ops/pallas_deform_attn_v16.py:244"),
+            ("deform_attn_bwd (f32)@bbox", "deform_attn_bwd (f32)",
+             pair_train["deform_attn_bwd"].get("f32", 0), "deform_attn_bwd.cu",
+             "pairnet_tpu/ops/pallas_deform_bwd2.py:196")):
+        entries.append({**{f: enc[key][f] for f in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                                     "bound_ms", "bound_by")},
+                        "name": name, "route": "cuda", "source": f"pairnet_torch/csrc/{src}",
+                        "replaces": rep, "launches": launches, "library_ms": None,
+                        "geometry": f"encoder Q=S={S}", "decoder_q100_box_refs": decg[key]})
+    entries.append({
+        "name": "hungarian_long@od", "route": "cuda", "source": "pairnet_torch/csrc/hungarian.cu",
+        "replaces": "pairnet_tpu/ops/hungarian.py:36 (_solve_n_le_m, a lax.while_loop; not a "
+                    "pallas_call site)",
+        "launches": od_train["hungarian_long"], "bound_by": "bytes", "library_ms": None,
+        **{f: hung_long[f] for f in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                     "solved_as", "search_steps", "search_steps_max",
+                                     "ns_per_step")}})
+    return {"kernels_at_geometry": geo, "serving": served,
+            "f32_exact_vs_plain": {"max_abs_err": fwd_err, "decided_ranks": decided,
+                                   "picks_replayed": flips},
+            "scoring": {"config": os.path.relpath(BBOX_CONFIG), "metrics": metrics,
+                        "launches_per_forward": per_fwd},
+            "train_cli": trained, "hungarian_long": hung_long, "step_split": step_split,
+            "seconds": bbox_s}, entries
+
+
 def main():
     # --- (0) the card ---
     if not torch.cuda.is_available():
@@ -1586,13 +2119,15 @@ def main():
     kernels = []
 
     def record(name, launches, kernel_fn, plain_fn, compare, in_t, flops, note, phase=5,
-               library_fn=None, peak_flops=F32_FLOPS, **where):
+               library_fn=None, peak_flops=F32_FLOPS, in_bytes=None, **where):
         """Check the kernel against its plain version on the main path's
         inputs, time both (and ``library_fn``, one PyTorch call of the same
         function, where there is one), and add the kernel's entry
-        (``where``: source, replaces) unless ``launches`` is None. The
-        bound's operations term runs at ``peak_flops``: the rate of the
-        units and type the kernel's products use."""
+        (``where``: source, replaces) unless ``launches`` is None. Returns
+        (the kernel's output, the entry). The bound's operations term runs at
+        ``peak_flops``: the rate of the units and type the kernel's products
+        use; its bytes term reads ``in_t`` once, or ``in_bytes`` when given
+        (the bytes this run's data needs, where it reads only some)."""
         out, ref = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         d = compare(out, ref)
@@ -1602,23 +2137,25 @@ def main():
         plain_ms = cuda_ms(torch, plain_fn, 2)
         library_ms = None if library_fn is None else cuda_ms(torch, library_fn, 10)
         out_t = out if isinstance(out, tuple) else (out,)
-        t_bytes = nbytes(*in_t, *out_t) / HBM_BYTES_PER_S * 1e3
+        moved = nbytes(*out_t) + (nbytes(*in_t) if in_bytes is None else in_bytes)
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak_flops * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        entry = {
+            "name": name, "route": "cuda", **where, "launches": launches, "max_abs_err": d,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bound_terms_ms": {"bytes": t_bytes, "operations": t_ops},
+        }
         if launches is not None:
-            kernels.append({
-                "name": name, "route": "cuda", **where, "launches": launches, "max_abs_err": d,
-                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": bound_by, "library_ms": library_ms,
-                "bound_terms_ms": {"bytes": t_bytes, "operations": t_ops},
-            })
+            kernels.append(entry)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         log(f"[{phase}] {name} ({note}): vs plain {d:.3g} within tolerance; {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms{lib}, behind a spin {device_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({bound_by}: bytes "
             f"{t_bytes:.4f}, ops {t_ops:.4f})")
-        return out
+        return out, entry
 
     def quantize_passes(fn, name, phase=5):
         """The device work of one quantize call: its two passes and no other
@@ -1654,7 +2191,7 @@ def main():
     record("deform_attn_exact", None, lambda: deform_attn_exact(v, SHAPES, lc, wt),
            lambda: ms_deform_attn_plain(v, SHAPES, lc, wt), compare_exact_bf16, (v, lc, wt),
            tap_flops(lc), f"bf16 values, bf16 serving batch {B}, encoder layer 0, rel")
-    codes, scales = record(
+    (codes, scales), _ = record(
         "int4_quantize", serving_launches["int4_quantize"], lambda: int4_quantize(v, SHAPES),
         lambda: int4_quantize_plain(v, SHAPES), compare_quantize, (v,), 5 * v.numel(),
         f"bf16 serving batch {B}, encoder layer 0, max|d| of codes and scales",
@@ -2031,7 +2568,7 @@ def main():
                               ("f32", captured[("int8", torch.float32)])):
         c = c_bf16 if inst == "bf16" else c_f32
         what = f"{inst} scoring batch {BATCH}, encoder layer 0"
-        codes, scales = record(
+        (codes, scales), _ = record(
             f"int8_quantize ({inst} values)", c["int8_quantize"].get(inst, 0),
             lambda: int8_quantize(v, SHAPES), lambda: int8_quantize_plain(v, SHAPES),
             lambda k, p: compare_quantize(k, p, "int8_quantize"), (v,), 5 * v.numel(),
@@ -2550,6 +3087,10 @@ def main():
                                 for what in ("sgdet", "PQ")},
                                score, int4_expect, launches, reset_launches, count_plain_calls)
     zoo = zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_plain_calls)
+    compare = {"exact_f32": compare_exact_f32, "exact_bf16": compare_exact_bf16,
+               "quantize": compare_quantize, "gather": compare_gather, "bwd": compare_bwd}
+    bbox, bbox_kernels = bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls)
+    kernels.extend(bbox_kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
@@ -2589,6 +3130,7 @@ def main():
         "train_cli": swin_train, "heads": heads}}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"bbox": bbox}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))

@@ -48,6 +48,29 @@
 //     (a degenerate row), the higher column, as the plain loop's scatter
 //     on the CPU does.
 // No fast-math: f32 subtractions and compares as the plain loop does them.
+//
+// A second instance, hungarian_long_kernel, takes 256 < m <= 65536: the
+// detection-only loss matches the encoder's S proposals (22,323 at
+// 800x1344 with 4 levels; 37,485 at 1344x1344) against <= 100 GT boxes,
+// which after the n <= m transpose is a (G, S) problem. The columns no
+// longer fit in a warp's registers, so:
+//   * one CTA of 1024 threads per problem; the costs are read from global
+//     memory (a 64 x 22,323 problem is 5.7 MB, which the 50 MB L2 holds),
+//     the column state (minv, way, v, used, p) lives in a global workspace
+//     the wrapper allocates, the potentials u of the rows too;
+//   * thread t owns columns t, t + 1024, ...; a search step is one pass
+//     over them that also applies the previous step's minv -= delta (the
+//     plain loop's update, in its order: it is the next step's first use),
+//     then a block-wide argmin that keeps the first minimum: each thread's
+//     first least key, the warps' least (key, column) by two
+//     __reduce_min_sync, then warp 0 over the 32 warps the same way;
+//   * u += delta and v -= delta touch only the rows and columns this
+//     search visited, kept in a list (a search visits one of each a step),
+//     so a step costs one pass over m plus O(steps);
+//   * used flags are cleared through the visited list at the end of a
+//     row, minv and way are reset by the first pass of each row.
+// The same padding contract and bit-equal results as the plain loop; the
+// same search-step bound and degenerate-row handling as the first instance.
 
 #include <cuda_runtime.h>
 
@@ -189,6 +212,160 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) steps_out[blockIdx.x] = total_steps;
 }
 
+constexpr int kLongMaxCols = 65536;       // the long instance's limit on m
+constexpr int kLongThreads = 1024;
+constexpr int kLongWarps = kLongThreads / 32;
+
+// Per-problem workspace of the long instance, in 4-byte words: minv (m),
+// way (m), v (m + 1), used (m), p (m + 1), u (n), visited rows and
+// columns (m + 2 each: a search takes at most m + 1 steps), inverse map (n).
+__host__ __device__ inline size_t long_ws_words(int n, int m) {
+  return 7 * (size_t)m + 6 + 2 * (size_t)n;
+}
+
+__global__ void __launch_bounds__(kLongThreads)
+    hungarian_long_kernel(const float* __restrict__ cost, long long* __restrict__ row2col,
+                          int* __restrict__ steps_out, int n, int m, int* __restrict__ ws_all) {
+  __shared__ unsigned warp_key[kLongWarps];
+  __shared__ int warp_col[kLongWarps];
+  __shared__ float warp_val[kLongWarps];
+  __shared__ int sh_j1, sh_i0, sh_nrows, sh_ncols, sh_go;
+  __shared__ float sh_delta, sh_ui0;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* C = cost + (size_t)blockIdx.x * n * m;
+  int* ws = ws_all + (size_t)blockIdx.x * long_ws_words(n, m);
+  float* minv = reinterpret_cast<float*>(ws);
+  int* way = ws + m;
+  float* v = reinterpret_cast<float*>(ws + 2 * (size_t)m);
+  int* used = ws + 3 * (size_t)m + 1;
+  int* p = ws + 4 * (size_t)m + 1;
+  float* u = reinterpret_cast<float*>(ws + 5 * (size_t)m + 2);
+  int* vrows = ws + 5 * (size_t)m + 2 + n;
+  int* vcols = vrows + m + 2;
+  int* inv = vcols + m + 2;
+
+  for (int j = tid; j <= m; j += kLongThreads) {
+    p[j] = -1;
+    v[j] = 0.0f;
+    if (j < m) used[j] = 0;
+  }
+  for (int r = tid; r < n; r += kLongThreads) {
+    u[r] = 0.0f;
+    inv[r] = -1;
+  }
+  int total_steps = 0;
+  __syncthreads();
+
+  for (int i = 0; i < n; ++i) {
+    if (tid == 0) {
+      p[m] = i;
+      sh_nrows = 0;
+      sh_ncols = 0;
+    }
+    int j0 = m, steps = 0;
+    float pending = 0.0f;  // the previous step's delta, owed to minv
+    __syncthreads();
+    while (true) {
+      // mark j0 used, visit its row
+      if (tid == 0) {
+        if (j0 < m) used[j0] = 1;
+        vcols[sh_ncols++] = j0;
+        const int i0 = p[j0];
+        vrows[sh_nrows++] = i0;
+        sh_i0 = i0;
+        sh_ui0 = u[i0];
+      }
+      __syncthreads();
+      const int i0 = sh_i0;
+      const float ui0 = sh_ui0;
+      const float* crow = C + (size_t)i0 * m;
+      float best = __int_as_float(0x7f800000);
+      int best_j = INT_MAX;
+      for (int j = tid; j < m; j += kLongThreads) {
+        float masked = kInf;  // a used column: the plain loop's masked value
+        if (!used[j]) {
+          float mv;
+          int wv;
+          if (steps == 0) {
+            mv = kInf;
+            wv = 0;
+          } else {
+            mv = minv[j] - pending;
+            wv = way[j];
+          }
+          const float cur = (__ldg(crow + j) - ui0) - v[j];
+          if (cur < mv) {
+            mv = cur;
+            wv = j0;
+          }
+          minv[j] = mv;
+          way[j] = wv;
+          masked = mv;
+        }
+        if (masked < best) {  // strict: the first minimum, j rising
+          best = masked;
+          best_j = j;
+        }
+      }
+      const unsigned key = order_key(best);
+      const unsigned least = __reduce_min_sync(kFull, key);
+      const unsigned col = __reduce_min_sync(kFull, key == least ? (unsigned)best_j : 0xffffffffu);
+      if (lane == 0) {
+        warp_key[warp] = least;
+        warp_col[warp] = (int)col;
+      }
+      if (key == least && (unsigned)best_j == col) warp_val[warp] = best;
+      __syncthreads();
+      if (warp == 0) {
+        const unsigned k2 = warp_key[lane];
+        const unsigned l2 = __reduce_min_sync(kFull, k2);
+        const unsigned c2 = __reduce_min_sync(kFull, k2 == l2 ? (unsigned)warp_col[lane]
+                                                              : 0xffffffffu);
+        if (k2 == l2 && (unsigned)warp_col[lane] == c2) {  // delta bit for bit
+          sh_j1 = (int)c2;
+          sh_delta = warp_val[lane];
+        }
+      }
+      __syncthreads();
+      const int j1 = sh_j1;
+      const float delta = sh_delta;
+      const int nr = sh_nrows, nc = sh_ncols;
+      for (int k = tid; k < nr; k += kLongThreads) u[vrows[k]] = u[vrows[k]] + delta;
+      for (int k = tid; k < nc; k += kLongThreads) v[vcols[k]] = v[vcols[k]] - delta;
+      pending = delta;
+      j0 = j1;
+      ++steps;
+      if (tid == 0) sh_go = p[j0] != -1 && steps <= m;
+      __syncthreads();
+      if (!sh_go) break;
+    }
+
+    // augment: walk way back to the virtual column, shifting matches
+    if (tid == 0) {
+      for (int s = 0; s < steps && j0 != m; ++s) {
+        const int j1 = way[j0];
+        p[j0] = p[j1];
+        j0 = j1;
+      }
+      p[m] = -1;
+    }
+    // clear the used flags of this search's columns
+    const int nc = sh_ncols;
+    for (int k = tid; k < nc; k += kLongThreads)
+      if (vcols[k] < m) used[vcols[k]] = 0;
+    total_steps += steps;
+    __syncthreads();
+  }
+
+  for (int j = tid; j < m; j += kLongThreads)
+    if (p[j] >= 0) atomicMax(&inv[p[j]], j);
+  __syncthreads();
+  long long* out = row2col + (size_t)blockIdx.x * n;
+  for (int r = tid; r < n; r += kLongThreads) out[r] = inv[r];
+  if (tid == 0) steps_out[blockIdx.x] = total_steps;
+}
+
 }  // namespace
 
 // cost f32 (B, n, m) contiguous, 1 <= n <= m <= 256 (PAD_COST-padded and
@@ -209,5 +386,22 @@ extern "C" int hungarian_solve(const void* cost, void* row2col, void* steps, int
   hungarian_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(cost), static_cast<long long*>(row2col),
       static_cast<int*>(steps), n, m, staged);
+  return (int)cudaGetLastError();
+}
+
+// The workspace words per problem of hungarian_solve_long.
+extern "C" long long hungarian_long_workspace(int n, int m) {
+  return (long long)long_ws_words(n, m);
+}
+
+// As hungarian_solve, for 1 <= n <= m <= 65536: the long instance. ws is
+// B * hungarian_long_workspace(n, m) 4-byte words of device memory, which
+// the kernel initializes itself.
+extern "C" int hungarian_solve_long(const void* cost, void* row2col, void* steps, int B, int n,
+                                    int m, void* ws, void* stream) {
+  if (B < 1 || n < 1 || n > m || m > kLongMaxCols) return (int)cudaErrorInvalidValue;
+  hungarian_long_kernel<<<B, kLongThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const float*>(cost), static_cast<long long*>(row2col),
+      static_cast<int*>(steps), n, m, static_cast<int*>(ws));
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,48 @@
-"""Views of a split: the balanced relation sampler (the port's copy of
-``BalancedRelationDataset`` in ``pairnet_tpu/data/sg.py``) and a rank's
-shard of a split for sharded scoring.
+"""The box-only scene graph datasets and views of a split (the port's copy
+of ``pairnet_tpu/data/sg.py``):
 
-The box-only scene graph datasets of that module (VG-150, Open Images V6)
-are not ported yet.
+* ``SceneGraphDataset`` (Visual Genome VG-150) and ``OIV6Dataset`` (Open
+  Images V6): PSG's json schema (``data``, ``test_image_ids``,
+  ``thing_classes``, ``stuff_classes``, ``predicate_classes``) with boxes
+  only, no panoptic PNGs; the masks are the boxes filled, for the
+  pipeline; scoring uses ``detection_method="bbox"``;
+* the balanced relation sampler (``BalancedRelationDataset``) and a rank's
+  shard of a split for sharded scoring.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from pairnet_torch.config.registry import DATASETS
+from pairnet_torch.data.psg import PSGDataset
+
+
+@DATASETS.register()
+class SceneGraphDataset(PSGDataset):
+    """VG-150 through the PSG reader; the masks are synthesized from the
+    boxes for the pipeline only."""
+
+    detection_method = "bbox"
+
+    def load_masks(self, idx: int):
+        d = self.data[idx]
+        n = len(d.annotations)
+        boxes = np.asarray([a["bbox"] for a in d.annotations], np.float32)
+        labels = np.asarray([a["category_id"] for a in d.annotations], np.int64)
+        masks = np.zeros((n, d.height, d.width), bool)
+        for i, b in enumerate(boxes):
+            x0, y0, x1, y1 = (int(v) for v in b)
+            masks[i, max(y0, 0): max(y1, 0), max(x0, 0): max(x1, 0)] = True
+        semantic = np.full((d.height, d.width), 255, np.uint8)
+        return masks, labels, semantic
+
+
+@DATASETS.register()
+class OIV6Dataset(SceneGraphDataset):
+    """Open Images V6 scene graphs; box scoring only."""
+
+    detection_method = "bbox"
 
 
 class IndexedDataset:

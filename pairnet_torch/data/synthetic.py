@@ -116,3 +116,23 @@ def make_synthetic_psg(
     with open(ann_path, "w") as f:
         json.dump(psg, f)
     return ann_path
+
+
+def write_box_only_split(root: str, ann_file: str) -> str:
+    """The fixture under ``root`` as a box-only split in VG's schema:
+    ``ann_file`` holds psg.json's images, annotations (boxes) and relations,
+    without segments or panoptic PNGs (relations index the annotations).
+    Written under a private name, then renamed into place; returns its path."""
+    path = os.path.join(root, ann_file)
+    if os.path.exists(path):
+        return path
+    with open(os.path.join(root, "psg.json")) as f:
+        psg = json.load(f)
+    for d in psg["data"]:
+        d.pop("segments_info", None)
+        d.pop("pan_seg_file_name", None)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(psg, f)
+    os.replace(tmp, path)
+    return path

@@ -11,7 +11,8 @@ Counterpart of ``pairnet_tpu/evaluation/runner.py``:
   (reproduced in numpy);
 * :func:`evaluate_model_with_postprocess`: the same oracle through a
   head's own post-processing (``train/dispatch.get_postprocess_fn``), the
-  scoring path of every head but Pair-Net's;
+  scoring path of every head but Pair-Net's; a box head's triplets
+  (``BoxTripletPrediction``) score with ``detection_method="bbox"``;
 * :func:`evaluate_pq`: Panoptic Quality of the fused panoptic maps.
 
 ``apply_fn(images) -> output dict`` takes the loader's numpy image batch and
@@ -265,6 +266,26 @@ def triplets_to_protocol(pred, batch: dict, b: int, mask_stride: int) -> SGPredi
     )
 
 
+def box_triplets_to_protocol(pred, batch: dict, b: int) -> SGPrediction:
+    """A BoxTripletPrediction of image ``b`` (normalized xyxy on the padded
+    canvas) in the eval protocol: pixel boxes at the original resolution.
+    The resized image fills [0, rh) x [0, rw) of the canvas, so the boxes
+    scale by the canvas size, then by original / resized."""
+    rh, rw = (float(x) for x in batch["image_shape"][b])
+    oh, ow = (float(x) for x in batch["orig_shape"][b])
+    ph, pw = (float(s) for s in batch["image"].shape[1:3])
+    boxes = pred.boxes.float().cpu().numpy()
+    sx = pw * ow / max(rw, 1.0)
+    sy = ph * oh / max(rh, 1.0)
+    return SGPrediction(
+        labels=pred.labels.cpu().numpy().astype(np.int64),
+        rel_pair_idxes=pred.rel_pairs.cpu().numpy().astype(np.int64),
+        rel_dists=pred.r_dists.float().cpu().numpy(),
+        masks=None,
+        boxes=boxes * np.array([sx, sy, sx, sy], np.float32),
+    )
+
+
 def evaluate_model_with_postprocess(apply_fn, postprocess_fn, dataset, pipe_cfg: PipelineConfig,
                                     batch_size: int = 1, mode: str = "sgdet",
                                     num_predicates: int = 56, num_things: int = 80,
@@ -273,7 +294,8 @@ def evaluate_model_with_postprocess(apply_fn, postprocess_fn, dataset, pipe_cfg:
     (``postprocess_fn(outputs, b, num_things=...) -> TripletPrediction``),
     on the device; the predictions come to the host at the original
     resolution. ``results_out`` pickles them. Sharded as
-    :func:`evaluate_model`."""
+    :func:`evaluate_model`. Triplets with ``boxes`` (a box head's) score
+    with ``detection_method="bbox"``."""
     if mode == "predcls":
         # predcls puts the GT detections in place of the prediction's, which
         # only lines up for a head conditioned on GT boxes (two-stage); a
@@ -287,7 +309,10 @@ def evaluate_model_with_postprocess(apply_fn, postprocess_fn, dataset, pipe_cfg:
             if not batch["batch_valid"][b]:
                 continue
             trip = postprocess_fn(out, b, num_things=num_things)
-            preds.append(triplets_to_protocol(trip, batch, b, pipe_cfg.mask_stride))
+            if hasattr(trip, "boxes"):
+                preds.append(box_triplets_to_protocol(trip, batch, b))
+            else:
+                preds.append(triplets_to_protocol(trip, batch, b, pipe_cfg.mask_stride))
     preds = _gather_in_order(preds)
     metrics = None
     if rank == 0:
@@ -295,8 +320,10 @@ def evaluate_model_with_postprocess(apply_fn, postprocess_fn, dataset, pipe_cfg:
             save_predictions(preds, results_out)
         gts = load_groundtruths(dataset)
         assert len(gts) == len(preds), (len(gts), len(preds))
+        use_boxes = any(p.boxes is not None for p in preds)
         metrics = sgg_evaluate(gts, preds, mode=mode, num_predicates=num_predicates,
-                               iou_thr=iou_thr, detection_method="pan_seg",
+                               iou_thr=iou_thr,
+                               detection_method="bbox" if use_boxes else "pan_seg",
                                num_things=num_things)
     if is_distributed():
         box = [metrics]

@@ -24,6 +24,7 @@ from pairnet_torch.models.layers import (
     FrozenBatchNorm,
     MSDeformAttention,
     MultiheadAttention,
+    RMSNorm,
     deform_offsets_bias,
 )
 from pairnet_torch.ops.deform_attn_bwd import BWD_VARIANTS
@@ -47,7 +48,8 @@ def resolve_device(device=None) -> torch.device:
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and buffer from a seeded generator: lecun-normal
-    kernels and zero biases, N(0, 1) query tables, Swin's relative-position
+    kernels and zero biases, N(0, 1) query tables (and the box head's
+    ``level_embeds``), Swin's relative-position
     tables from JAX's truncated normal(0.02) (N(0, 1) cut at +-2 sigma,
     scaled to std 0.02), identity norms, and mmcv's deformable-attention
     init (zero offset/weight kernels, offset grid bias)."""
@@ -64,6 +66,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
             elif isinstance(m, WindowMSA):
                 std = 0.02 / TRUNC_NORMAL_STD
                 nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, std, -2 * std,
@@ -76,6 +80,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+            if isinstance(getattr(m, "level_embeds", None), nn.Parameter):
+                m.level_embeds.normal_(0.0, 1.0, generator=g)
         for m in model.modules():
             if isinstance(m, MSDeformAttention):
                 m.sampling_offsets.weight.zero_()

@@ -1,8 +1,10 @@
-"""ResNet backbone (torchvision bottleneck, frozen BN), NCHW inside.
+"""ResNet and ResNeXt backbones (torchvision bottleneck, frozen BN), NCHW
+inside.
 
-Counterpart of ``pairnet_tpu/models/backbones/resnet.py::ResNet``, with
-torchvision's module names (``conv1``, ``bn1``, ``layer1.0.conv1``,
-``layer1.0.downsample.0``, ...).
+Counterpart of ``pairnet_tpu/models/backbones/resnet.py::ResNet`` and
+``::ResNeXt``, with torchvision's module names (``conv1``, ``bn1``,
+``layer1.0.conv1``, ``layer1.0.downsample.0``, ...), which ResNeXt shares:
+its grouped 3x3 conv keeps the name ``conv2``.
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ STAGE_BLOCKS = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3,
 
 
 class Bottleneck(nn.Module):
-    """torchvision bottleneck; the stride sits in the 3x3 conv."""
+    """torchvision bottleneck; the stride sits in the 3x3 conv, which has
+    ``groups`` groups over ``width`` inner channels (default ``planes``)."""
 
-    def __init__(self, inplanes, planes, stride=1, downsample=False):
+    def __init__(self, inplanes, planes, stride=1, downsample=False, groups=1, width=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        width = width or planes
+        self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(width)
+        self.conv2 = nn.Conv2d(width, width, 3, stride=stride, padding=1, groups=groups,
+                               bias=False)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = nn.Conv2d(width, planes * 4, 1, bias=False)
         self.bn3 = FrozenBatchNorm(planes * 4)
         self.downsample = None
         if downsample:
@@ -46,15 +51,22 @@ class ResNet(nn.Module):
 
     def __init__(self, depth=50, base_width=64):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, base_width, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(base_width)
-        inplanes, planes = base_width, base_width
+        self._stages(depth, base_width, base_width, lambda planes: (1, planes))
+
+    def _stages(self, depth, stem_width, planes, inner):
+        """The stem and four stages; ``inner(planes)`` gives a stage's
+        (groups, width) of its 3x3 convs."""
+        self.conv1 = nn.Conv2d(3, stem_width, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm(stem_width)
+        inplanes = stem_width
         self.out_channels = []
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+            groups, width = inner(planes)
             blocks = []
             for b in range(n_blocks):
                 stride = (1 if stage == 0 else 2) if b == 0 else 1
-                blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0)))
+                blocks.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0),
+                                         groups=groups, width=width))
                 inplanes = planes * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             self.out_channels.append(inplanes)
@@ -69,3 +81,14 @@ class ResNet(nn.Module):
             x = getattr(self, f"layer{stage + 1}")(x)
             outs.append(x)
         return tuple(outs)
+
+
+class ResNeXt(ResNet):
+    """ResNeXt (grouped bottlenecks; ResNeXt-101 32x8d by default): a 64-wide
+    stem and planes 64, 128, 256, 512 as ResNet-50's, with inner width
+    ``planes * base_width // 64 * groups`` in every block of a stage."""
+
+    def __init__(self, depth=101, groups=32, base_width=8, stem_width=64):
+        nn.Module.__init__(self)
+        self._stages(depth, stem_width, 64,
+                     lambda planes: (groups, planes * base_width // 64 * groups))

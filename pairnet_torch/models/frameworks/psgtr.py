@@ -14,14 +14,22 @@ from torch import nn
 
 
 class PSGTr(nn.Module):
-    def __init__(self, backbone: nn.Module, bbox_head: nn.Module):
+    """backbone -> (neck) -> head. The box head's ChannelMapper sits at the
+    model's ``neck``, as in the reference's checkpoints; JAX keeps it inside
+    its head."""
+
+    def __init__(self, backbone: nn.Module, bbox_head: nn.Module, neck: nn.Module | None = None):
         super().__init__()
         self.backbone = backbone
+        if neck is not None:
+            self.neck = neck
         self.bbox_head = bbox_head
 
     def forward(self, images):
         """images (B, H, W, 3) -> the head's prediction dict."""
         feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
+        if hasattr(self, "neck"):
+            feats = self.neck(feats)
         return self.bbox_head(feats)
 
 
@@ -30,37 +38,44 @@ def _not_ported(what: str, item: str = "the model zoo"):
 
 
 def _heads() -> dict:
-    """Head type -> the port's head class (each takes the backbone's
-    output channels first)."""
+    """Head type -> a factory that takes the backbone's output channels and
+    the head's config and returns (head, neck or None)."""
     from pairnet_torch.models.heads.baseline_head import BaselineHead, MyPSGFormerHead
     from pairnet_torch.models.heads.detr4seg_head import Detr4SegHead
+    from pairnet_torch.models.heads.pairnet_bbox_head import crosshead_bbox_with_neck
     from pairnet_torch.models.heads.pairnet_head import PairNetHead
     from pairnet_torch.models.heads.psgformer_head import PSGFormerHead
     from pairnet_torch.models.heads.psgtr2_head import PSGTr2Head
     from pairnet_torch.models.heads.psgtr_head import PSGTrHead
 
-    return {"PairNetHead": PairNetHead, "PSGTrHead": PSGTrHead, "PSGFormerHead": PSGFormerHead,
-            "BaselineHead": BaselineHead, "MyPSGFormerHead": MyPSGFormerHead,
-            "PSGTr2Head": PSGTr2Head, "Detr4SegHead": Detr4SegHead}
+    def alone(cls):
+        return lambda channels, **cfg: (cls(channels, **cfg), None)
+
+    return {"PairNetHead": alone(PairNetHead), "PSGTrHead": alone(PSGTrHead),
+            "PSGFormerHead": alone(PSGFormerHead), "BaselineHead": alone(BaselineHead),
+            "MyPSGFormerHead": alone(MyPSGFormerHead), "PSGTr2Head": alone(PSGTr2Head),
+            "Detr4SegHead": alone(Detr4SegHead), "CrossHeadBBox": crosshead_bbox_with_neck}
 
 
-# not yet ported: the head types of the bbox slice and the two-stage models
-NOT_PORTED = {"CrossHeadBBox": "the bbox head (A.7)", "SceneGraphTwoStage": "two-stage (A.7)"}
+# not yet ported: the two-stage models and their relation heads
+NOT_PORTED = {t: "A.2-A.3, the two-stage models"
+              for t in ("SceneGraphTwoStage", "MotifHead", "IMPHead", "GPSHead", "VCTreeHead")}
 
 
 def build_model(cfg: Mapping[str, Any], device=None, seed: int = 0) -> PSGTr:
     """A detector from a model config node, with seeded weights
     (``flagship.init_weights``), in eval mode, on ``device`` (default CUDA).
-    Ported: ``PSGTr`` with a ``ResNet`` or ``SwinTransformer`` backbone and
-    one of the one-stage heads of :func:`_heads` (Pair-Net with any of its
-    matrix learners or ``direct``, PSGTr, PSGFormer, the Mask2Former
-    baselines, PSGTr2, DETR4Seg). The bbox head and the two-stage models
-    raise, naming their ROADMAP item."""
+    Ported: ``PSGTr`` with a ``ResNet``, ``ResNeXt`` or ``SwinTransformer``
+    backbone and one of the one-stage heads of :func:`_heads` (Pair-Net
+    with any of its matrix learners or ``direct``, PSGTr, PSGFormer, the
+    Mask2Former baselines, PSGTr2, DETR4Seg) or the box Pair-Net
+    ``CrossHeadBBox`` with its ChannelMapper neck over the backbone's last
+    three levels. The two-stage models raise, naming their ROADMAP item."""
     from pairnet_torch.flagship import init_weights, resolve_device
-    from pairnet_torch.models.backbones.resnet import ResNet
+    from pairnet_torch.models.backbones.resnet import ResNet, ResNeXt
     from pairnet_torch.models.backbones.swin import SwinTransformer
 
-    backbones = {"ResNet": ResNet, "SwinTransformer": SwinTransformer}
+    backbones = {"ResNet": ResNet, "ResNeXt": ResNeXt, "SwinTransformer": SwinTransformer}
     model_cfg = dict(cfg)
     if model_cfg.get("type") in NOT_PORTED:
         raise _not_ported(f"model type {model_cfg['type']!r}", NOT_PORTED[model_cfg["type"]])
@@ -79,7 +94,7 @@ def build_model(cfg: Mapping[str, Any], device=None, seed: int = 0) -> PSGTr:
     device = resolve_device(device)
     with torch.device("meta"):  # allocate nothing until the device is known
         backbone = backbones[bb_type](**bb)
-        model = PSGTr(backbone, heads[head_type](backbone.out_channels, **head))
+        model = PSGTr(backbone, *heads[head_type](backbone.out_channels, **head))
     model = model.to_empty(device=device)
     init_weights(model, seed)
     return model.eval()

@@ -176,8 +176,45 @@ def deform_offsets_bias(num_heads, num_levels, num_points):
     return (grid * scale).reshape(-1)
 
 
+class RMSNorm(nn.Module):
+    """RMSNorm with a weight and no bias (the reference's ``fc.py``). In
+    JAX's order: the mean square in f32, ``x * rsqrt(ms + eps)`` cast to
+    x's type, then times the weight."""
+
+    def __init__(self, dim, eps=1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        ms = x.float().square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(ms + self.eps)).to(x.dtype) * self.weight.to(x.dtype)
+
+
+class SwiGLU(nn.Module):
+    """SwiGLU FFN without biases: ``w2(silu(w1 x) * w3 x)`` (the reference's
+    ``fc.py``)."""
+
+    def __init__(self, dim, hidden_dim, out_dim):
+        super().__init__()
+        self.w1 = nn.Linear(dim, hidden_dim, bias=False)
+        self.w3 = nn.Linear(dim, hidden_dim, bias=False)
+        self.w2 = nn.Linear(hidden_dim, out_dim, bias=False)
+
+    def forward(self, x):
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
+def linear_promoted(x, layer: nn.Linear):
+    """``layer`` applied in the promoted type of ``x`` and its weights, as a
+    flax Dense promotes an f32 input against bf16 weights to f32."""
+    dt = torch.promote_types(x.dtype, layer.weight.dtype)
+    bias = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), bias)
+
+
 class MSDeformAttention(nn.Module):
-    """Multi-scale deformable self-attention over point references.
+    """Multi-scale deformable attention over point or box references.
 
     The residual is added here (mmcv adds the identity inside the module).
     ``impl`` picks the MSDA implementation (see ``ops/deform_attn.py``);
@@ -203,7 +240,10 @@ class MSDeformAttention(nn.Module):
 
     def forward(self, query, value, reference_points, spatial_shapes: Sequence[tuple[int, int]],
                 query_pos=None, identity=None):
-        """query (B, Q, C); value (B, S, C); reference_points (B or 1, Q, L, 2)."""
+        """query (B, Q, C); value (B, S, C); reference_points (B or 1, Q, L,
+        2) points (x, y) or (B, Q, L, 4) boxes (cx, cy, w, h). A query in
+        another type than the weights (an f32 positional encoding added to
+        bf16 tokens) computes its offsets and weights in the promoted type."""
         B, Q, C = query.shape
         H, L, P = self.num_heads, self.num_levels, self.num_points
         if identity is None:
@@ -213,15 +253,19 @@ class MSDeformAttention(nn.Module):
         v = self.value_proj(value).reshape(B, -1, H, C // H)
         if self.seq_group is not None:  # the whole plane, cut to its real tokens
             v = gather_tokens(v, self.seq_group)[:, : sum(h * w for h, w in spatial_shapes)]
-        offsets = self.sampling_offsets(query).reshape(B, Q, H, L, P, 2)
-        attn = self.attention_weights(query).reshape(B, Q, H, L * P)
+        offsets = linear_promoted(query, self.sampling_offsets).reshape(B, Q, H, L, P, 2)
+        attn = linear_promoted(query, self.attention_weights).reshape(B, Q, H, L * P)
         attn = torch.softmax(attn, dim=-1).reshape(B, Q, H, L, P)
-        normalizer = torch.tensor(
-            [[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device
-        )  # (L, 2) as (w, h)
-        locs = reference_points[:, :, None, :, None, :].float() + offsets.float() / normalizer[
-            None, None, None, :, None, :
-        ]
+        ref = reference_points[:, :, None, :, None, :]
+        if reference_points.shape[-1] == 4:
+            # box references (mmcv): loc = cxcy + offset / P * wh * 0.5, the
+            # division in the offsets' type as JAX divides by a Python int
+            locs = ref[..., :2].float() + (offsets / P).float() * ref[..., 2:].float() * 0.5
+        else:
+            normalizer = torch.tensor(
+                [[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device
+            )  # (L, 2) as (w, h)
+            locs = ref.float() + offsets.float() / normalizer[None, None, None, :, None, :]
         out = ms_deform_attn(v, spatial_shapes, locs, attn, impl=self.impl, bwd=self.bwd)
         out = self.output_proj(out.to(identity.dtype))
         return identity + out

@@ -1,13 +1,14 @@
 """Loss functions of the Pair-Net training step (fixed shapes, mask-weighted).
 
-Counterpart of ``pairnet_tpu/models/losses.py`` (the focal losses wait for
-the heads that use them):
+Counterpart of ``pairnet_tpu/models/losses.py``:
 
 * Seesaw CE (mmdet SeesawLoss, p=0.8 q=2.0) for relation classification,
   with the running per-class sample counts carried as ``cum_samples``;
 * weighted softmax CE (mmdet CrossEntropyLoss) for the class losses;
 * BCE-with-logits with a pos_weight for the importance matrix;
-* point-sampled mask BCE and naive dice for the optional segmentation losses.
+* point-sampled mask BCE and naive dice for the optional segmentation losses;
+* the reference's sigmoid focal BCE and softmax focal NLL (``bce_focal_loss``,
+  ``multilabel_focal_loss``).
 
 Reductions are weighted means, ``sum(loss * w) / max(sum(w), eps)``, so
 padded slots never contribute. Every loss computes in f32.
@@ -109,3 +110,34 @@ def naive_dice_loss(pred_logits, targets, weights, eps=1.0, reduce=None):
     num = 2.0 * torch.sum(p * t, dim=-1)
     den = torch.sum(p, dim=-1) + torch.sum(t, dim=-1)
     return _wmean(1.0 - (num + eps) / (den + eps), weights, reduce=reduce)
+
+
+def bce_focal_loss(logits, targets, num_matches, gamma=2.0, alpha=0.25, loss_weight=1.0):
+    """Sigmoid focal BCE with the reference's ``.mean(1).sum() / num_matches``
+    reduction (its BCEFocalLoss). logits, targets (N, C)."""
+    x = logits.float()
+    t = targets.float()
+    prob = torch.sigmoid(x)
+    ce = -(t * F.logsigmoid(x) + (1.0 - t) * F.logsigmoid(-x))
+    p_t = prob * t + (1.0 - prob) * (1.0 - t)
+    loss = ce * torch.pow(1.0 - p_t, gamma)
+    if alpha >= 0:
+        loss = (alpha * t + (1.0 - alpha) * (1.0 - t)) * loss
+    return loss_weight * torch.sum(torch.mean(loss, dim=1)) / num_matches
+
+
+def multilabel_focal_loss(logits, labels, weights, class_weight=None, gamma=2.0,
+                          loss_weight=1.0):
+    """Softmax focal NLL, ``-(1 - p)^gamma log p`` at the label, with
+    per-class weights normalized as ``nll_loss(weight=...)`` (the
+    reference's MultilabelFocalLoss); without them a weighted mean."""
+    C = logits.shape[-1]
+    labels_safe = labels.clamp(0, C - 1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    focal_logp = torch.pow(1.0 - torch.exp(logp), gamma) * logp
+    nll = -torch.gather(focal_logp, -1, labels_safe[..., None])[..., 0]
+    if class_weight is not None:
+        cw = class_weight[labels_safe]
+        return loss_weight * torch.sum(nll * cw * weights) / torch.clamp_min(
+            torch.sum(cw * weights), 1e-7)
+    return loss_weight * _wmean(nll, weights)

@@ -8,10 +8,13 @@ written out where the JAX package vmaps:
 * ``mask_hungarian_assign``: queries to GT segments;
 * ``id_match``: Pair-Net's triplet assignment on (subject class, object
   class) costs (weights 1.0 / 1.0, predicate 0.0);
+* ``focal_cost`` and ``box_hungarian_assign``: the Deformable-DETR
+  HungarianAssigner (focal 2.0, L1 5.0 on normalized cxcywh, gIoU 2.0 on
+  image-scaled xyxy) of the box-detector head;
 * ``sample_points_for_matching``.
 
-Both assigners solve with :func:`pairnet_torch.ops.hungarian.batched_hungarian`
-on the device. The box and focal costs wait for the heads that use them.
+Every assigner makes one call of
+:func:`pairnet_torch.ops.hungarian.batched_hungarian` on the device.
 """
 
 from __future__ import annotations
@@ -70,6 +73,40 @@ def mask_hungarian_assign(cls_logits, mask_pts, gt_labels, gt_mask_pts, gt_valid
     )
     row2col, col2row = batched_hungarian(cost, col_mask=gt_valid)
     return MaskAssignResult(query2gt=row2col, gt2query=col2row)
+
+
+def focal_cost(logits, gt_labels, alpha=0.25, gamma=2.0, eps=1e-12):
+    """mmdet FocalLossCost (binary_input=False): the focal positive minus
+    negative cost of each class, at the GT labels. logits (B, N, C), gt_labels
+    (B, G) -> (B, N, G)."""
+    p = torch.sigmoid(logits.float())
+    pos = -alpha * ((1.0 - p) ** gamma) * torch.log(p + eps)
+    neg = -(1.0 - alpha) * (p ** gamma) * torch.log(1.0 - p + eps)
+    idx = gt_labels.long()[:, None, :].expand(-1, p.shape[1], -1)
+    return torch.gather(pos - neg, 2, idx)
+
+
+class BoxAssignResult(NamedTuple):
+    query2gt: torch.Tensor  # (B, Q) matched gt per query or -1
+    gt2query: torch.Tensor  # (B, G) matched query per valid gt or -1
+
+
+def box_hungarian_assign(cls_logits, boxes, gt_labels, gt_boxes, gt_valid, img_hw,
+                         cls_weight=2.0, l1_weight=5.0, giou_weight=2.0):
+    """mmdet HungarianAssigner with FocalLossCost, BBoxL1Cost (cxcywh) and
+    IoUCost (giou). cls_logits (B, Q, C) sigmoid logits, boxes (B, Q, 4) and
+    gt_boxes (B, G, 4) normalized cxcywh, gt_labels (B, G), gt_valid (B, G)
+    bool, img_hw (B, 2) the resized image's (h, w) that scales the gIoU."""
+    from pairnet_torch.ops.boxes import cxcywh_to_xyxy, generalized_box_iou
+
+    cost = cls_weight * focal_cost(cls_logits, gt_labels)
+    cost = cost + l1_weight * (boxes.float()[:, :, None] - gt_boxes[:, None]).abs().sum(-1)
+    scale = img_hw.flip(-1).repeat(1, 2).float()[:, None, :]
+    giou = generalized_box_iou(cxcywh_to_xyxy(boxes.float()) * scale,
+                               cxcywh_to_xyxy(gt_boxes) * scale)
+    cost = cost + giou_weight * (-giou)
+    row2col, col2row = batched_hungarian(cost, col_mask=gt_valid)
+    return BoxAssignResult(query2gt=row2col, gt2query=col2row)
 
 
 class IdMatchResult(NamedTuple):

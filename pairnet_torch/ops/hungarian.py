@@ -6,9 +6,17 @@ shortest-augmenting-path algorithm, with the same padding contract
 first minimum: ``torch.argmin`` returns the first, as ``jnp.argmin`` does).
 
 The JAX solver is a ``while_loop`` under ``jit``/``vmap`` that never comes
-back to the host. Its counterpart here is the kernel of
-``csrc/hungarian.cu``: one CTA per problem, launched on the current stream,
-no host sync. On CUDA tensors :func:`batched_hungarian` launches it
+back to the host. Its counterpart here is ``csrc/hungarian.cu``, one CTA
+per problem, launched on the current stream, no host sync, in two
+instances picked by m, the longer side of a problem:
+
+* m <= ``SHORT_COLS`` (256): one warp solves with the columns in its
+  registers (the matchers of the decoder queries);
+* ``SHORT_COLS`` < m <= ``MAX_COLS`` (65,536): 1024 threads over the
+  columns, their state in a workspace on the card (the detection-only
+  loss's encoder matcher: S proposals against the GT boxes).
+
+On CUDA tensors :func:`batched_hungarian` launches one of them
 (``batched_hungarian.launches``) or raises, for more than ``MAX_COLS``
 columns, a failed build or a launch error; the preparation (clip, pad) and
 the post-processing (transpose back, strip pad matches) are torch ops that
@@ -35,7 +43,8 @@ from pairnet_torch.ops import _build
 
 _INF = 1e18
 PAD_COST = 1e6
-MAX_COLS = 256  # the kernel's limit on m, the longer side of a problem
+SHORT_COLS = 256  # the first instance's limit on m, the longer side of a problem
+MAX_COLS = 65536  # the long instance's limit on m
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -45,6 +54,10 @@ def _lib():
     lib = _build.load("hungarian")
     lib.hungarian_solve.argtypes = [_P, _P, _P, _I, _I, _I, _P]
     lib.hungarian_solve.restype = ctypes.c_int
+    lib.hungarian_solve_long.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P]
+    lib.hungarian_solve_long.restype = ctypes.c_int
+    lib.hungarian_long_workspace.argtypes = [_I, _I]
+    lib.hungarian_long_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -119,8 +132,8 @@ def solve_n_le_m_plain(cost):
 
 def solve_n_le_m_cuda(cost):
     """The kernel on a batch of (n, m) f32 cost matrices on the card, n <=
-    m <= ``MAX_COLS``: (row2col int64 (B, n), steps int32 (B,), the search
-    steps each problem took)."""
+    m <= ``MAX_COLS`` (the long instance above ``SHORT_COLS``): (row2col
+    int64 (B, n), steps int32 (B,), the search steps each problem took)."""
     B, n, m = cost.shape
     if not 1 <= n <= m <= MAX_COLS:
         raise ValueError(f"hungarian kernel: takes 1 <= n <= m <= {MAX_COLS}, not n={n}, m={m}")
@@ -132,12 +145,19 @@ def solve_n_le_m_cuda(cost):
     if B == 0:
         return row2col, steps
     with torch.cuda.device(cost.device):
-        status = _lib().hungarian_solve(
-            cost.data_ptr(), row2col.data_ptr(), steps.data_ptr(), B, n, m,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if m <= SHORT_COLS:
+            status = _lib().hungarian_solve(cost.data_ptr(), row2col.data_ptr(),
+                                            steps.data_ptr(), B, n, m, stream)
+        else:  # the long instance, its column state in a workspace it initializes
+            ws = torch.empty((B * _lib().hungarian_long_workspace(n, m),), dtype=torch.int32,
+                             device=cost.device)
+            status = _lib().hungarian_solve_long(cost.data_ptr(), row2col.data_ptr(),
+                                                 steps.data_ptr(), B, n, m, ws.data_ptr(), stream)
     _build.check(status, "hungarian")
     batched_hungarian.launches += 1
+    if m > SHORT_COLS:
+        batched_hungarian.long_launches += 1
     return row2col, steps
 
 
@@ -210,4 +230,5 @@ def batched_hungarian_plain(cost, row_mask=None, col_mask=None):
 
 
 batched_hungarian.syncs = 0
-batched_hungarian.launches = 0
+batched_hungarian.launches = 0  # both instances
+batched_hungarian.long_launches = 0  # the long instance's

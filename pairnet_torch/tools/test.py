@@ -12,8 +12,9 @@ so); with one, the newest ``WORK_DIR/ckpts/epoch_<n>.pt`` that the port's
 ``--device`` (default ``cuda:LOCAL_RANK``). Pair-Net scores sgdet on the
 device engine (``--eval-engine numpy`` or ``--save-results``: the host
 oracle); every other one-stage head (PSGTr, PSGFormer, the Mask2Former
-baselines, PSGTr2, DETR4Seg) through its own post-processing and the host
-oracle, as the JAX CLI routes them; PQ through the head's
+baselines, PSGTr2, DETR4Seg, the box Pair-Net ``CrossHeadBBox``, which
+scores boxes: ``detection_method="bbox"``) through its own
+post-processing and the host oracle, as the JAX CLI routes them; PQ through the head's
 post-processing. Under ``torchrun`` the ranks
 score disjoint shards of the split (image i on rank i mod world) and merge
 the metrics exactly (``evaluation/runner.py``); rank 0 logs and writes
@@ -128,7 +129,7 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
     if cfg.model.type == "SceneGraphTwoStage":
-        raise NotImplementedError("two-stage models are not yet ported (ROADMAP queue A: A.7)")
+        raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.2-A.3)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
     impl = deform_impl(args.dtype)
     flash = os.environ.get("PAIRNET_FLASH_ATTN") == "1"

@@ -89,7 +89,7 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
     if cfg.model.type == "SceneGraphTwoStage":
-        raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.7)")
+        raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.2-A.3)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
     from pairnet_torch.train.dispatch import get_loss_fn
 

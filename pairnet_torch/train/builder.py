@@ -10,7 +10,7 @@ from pairnet_torch.config import Config
 from pairnet_torch.config.registry import DATASETS
 from pairnet_torch.data.pipeline import PipelineConfig
 from pairnet_torch.data.psg import PSGDataset  # noqa: F401  (registers PSGDataset)
-from pairnet_torch.data.sg import BalancedRelationDataset
+from pairnet_torch.data.sg import BalancedRelationDataset  # also registers the box datasets
 from pairnet_torch.models.frameworks.psgtr import build_model
 
 # synthetic fixtures are cached here, keyed by their generator options
@@ -52,9 +52,10 @@ def synthetic_root(opts: dict) -> str:
 def build_dataset(cfg: Config, split: str):
     """The dataset of ``cfg.data.dataset``. ``synthetic=True`` with an empty
     ``data_root`` gives the default 8-image fixture, ``synthetic=dict(...)``
-    passes generator options (num_images, height, width, ...). With
-    ``balanced=dict(oversample_thr=...)`` the train split is wrapped in the
-    balanced relation sampler."""
+    passes generator options (num_images, height, width, ...); a box-only
+    dataset (VG, OIV6) reads it as a box-only split named by its
+    ``ann_file``. With ``balanced=dict(oversample_thr=...)`` the train
+    split is wrapped in the balanced relation sampler."""
     d = dict(cfg.data.dataset)
     ds_type = d.pop("type", "PSGDataset")
     synthetic = d.pop("synthetic", False)
@@ -65,9 +66,14 @@ def build_dataset(cfg: Config, split: str):
         opts.setdefault("num_test", 3)
         opts.setdefault("seed", 1)
         d["data_root"] = synthetic_root(opts)
+        if ds_type in DATASETS and getattr(DATASETS.get(ds_type), "detection_method",
+                                           None) == "bbox":
+            from pairnet_torch.data.synthetic import write_box_only_split
+
+            write_box_only_split(d["data_root"], d.get("ann_file", "psg.json"))
     if ds_type not in DATASETS:
-        raise NotImplementedError(f"dataset type {ds_type!r} is not ported yet (only "
-                                  "PSGDataset; ROADMAP queue A)")
+        raise NotImplementedError(f"dataset type {ds_type!r} is not ported yet (ROADMAP "
+                                  "queue A)")
     ds = DATASETS.get(ds_type)(split=split, **d)
     if balanced and split == "train":
         ds = BalancedRelationDataset(ds, **dict(balanced))

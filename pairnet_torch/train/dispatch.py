@@ -5,7 +5,7 @@ Every loss has the signature ``loss(outputs, batch, points, cum_samples,
 targets=None) -> (losses, new_cum_samples)``: ``points`` (B, P, 2) are the
 mask-cost samples the step draws (JAX draws them from its key inside the
 loss), ``cum_samples`` the Seesaw counts, which only Pair-Net and the
-Seesaw baseline advance. Its ``num_points`` attribute is P (0 for the
+Seesaw baseline and the box Pair-Net advance. Its ``num_points`` attribute is P (0 for the
 heads that sample none), ``cum_size`` the length of the ``cum_samples``
 it carries, given the number of predicates.
 """
@@ -15,14 +15,13 @@ from __future__ import annotations
 import functools
 from typing import Callable
 
-_BBOX = ("CrossHeadBBox",)
 _TWO_STAGE = ("MotifHead", "IMPHead", "GPSHead", "VCTreeHead")
 
 
 def _not_ported(head_type: str):
-    item = ("the bbox head" if head_type in _BBOX else
-            "two-stage" if head_type in _TWO_STAGE else "the model zoo")
-    return NotImplementedError(f"head type {head_type!r} is not ported yet (ROADMAP A.7: {item})")
+    item = ("A.2-A.3: the two-stage models" if head_type in _TWO_STAGE
+            else "A: the model zoo")
+    return NotImplementedError(f"head type {head_type!r} is not ported yet (ROADMAP {item})")
 
 
 def _plain_loss(loss, loss_cfg, num_points, takes_points=True):
@@ -66,6 +65,20 @@ def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
         # CrossHead4's Seesaw runs over R + 1 classes, the background column included
         fn.cum_size = lambda num_relations: num_relations + int(seesaw)
         return fn
+    if head_type == "CrossHeadBBox":
+        from pairnet_torch.models.heads import pairnet_bbox_head
+
+        if loss_cfg.pop("detection_only", False):
+            # detection-only pretraining (the od_* configs): no Seesaw counts
+            return _plain_loss(pairnet_bbox_head.deformable_detr_detection_loss, loss_cfg, 0,
+                               takes_points=False)
+
+        def fn(outputs, batch, points, cum_samples, targets=None):
+            return pairnet_bbox_head.pairnet_bbox_loss(outputs, batch, cum_samples, **loss_cfg)
+
+        fn.num_points = 0
+        fn.cum_size = lambda num_relations: num_relations
+        return fn
     if head_type == "PSGTrHead":
         from pairnet_torch.models.heads.psgtr_head import psgtr_loss
 
@@ -88,7 +101,8 @@ def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
 
 
 def get_postprocess_fn(head_type: str) -> Callable:
-    """Per-image raw outputs -> TripletPrediction."""
+    """Per-image raw outputs -> TripletPrediction (BoxTripletPrediction for
+    the box head)."""
     if head_type == "PairNetHead":
         from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
 
@@ -109,4 +123,8 @@ def get_postprocess_fn(head_type: str) -> Callable:
         from pairnet_torch.models.heads.detr4seg_head import detr4seg_postprocess
 
         return detr4seg_postprocess
+    if head_type == "CrossHeadBBox":
+        from pairnet_torch.models.heads.pairnet_bbox_head import pairnet_bbox_postprocess
+
+        return pairnet_bbox_postprocess
     raise _not_ported(head_type)

@@ -6,8 +6,9 @@ model (``PSGTr(backbone, head)``) with numpy leaves. The port's
 exact inverse of the JAX package's checkpoint converters
 (``pairnet_tpu/utils/torch_convert.py``: ``convert_pairnet_checkpoint``,
 ``convert_psgtr_checkpoint``, ``convert_psgformer_checkpoint``,
-``convert_baseline_checkpoint``). PSGTr2 and DETR4Seg, which have no
-converter, share those heads' modules and names:
+``convert_baseline_checkpoint``, ``convert_crosshead_bbox_checkpoint``).
+PSGTr2 and DETR4Seg, which have no converter, share those heads' modules
+and names:
 
 * torch Linear weight (out, in)   <- flax Dense kernel (in, out)
 * torch Conv2d (O, I, kh, kw)     <- flax Conv kernel (kh, kw, I, O)
@@ -15,6 +16,9 @@ converter, share those heads' modules and names:
 * packed in_proj (3C, C) / (3C,)  <- q_proj/k_proj/v_proj kernels and biases
 * FrozenBatchNorm buffers         <- the ``constants`` collection
 * nn.Embedding weight             <- the flax parameter itself
+* RMSNorm weight                  <- flax ``weight``
+* the box head's ``level_embeds`` <- flax ``level_embed`` (its ChannelMapper,
+  the model's ``neck``, lives inside the flax head)
 * Swin PatchMerging norm/reduction <- the JAX module's (ky, kx, c) rows of
   4C, permuted into mmdet's ``nn.Unfold`` order (c, ky, kx)
 
@@ -33,7 +37,8 @@ import torch
 from torch import nn
 
 from pairnet_torch.models.backbones.swin import PatchMerging, WindowMSA
-from pairnet_torch.models.layers import FrozenBatchNorm, MultiheadAttention
+from pairnet_torch.models.heads.pairnet_bbox_head import CrossHeadBBox, DeformableDetrTransformer
+from pairnet_torch.models.layers import FrozenBatchNorm, MultiheadAttention, RMSNorm
 
 # torch module name -> flax module path, applied in order on the dotted name
 _E = r"(?=\.|$)"  # end of a name component
@@ -86,11 +91,43 @@ _RULES = [
 ]
 
 
-def flax_path(module_name: str, m2f: bool = True) -> tuple[str, ...]:
+
+def _bbox_rules(n_in: int, n_dec: int):
+    """The box head's names (``convert_crosshead_bbox``) for a ChannelMapper
+    of ``n_in`` input levels and ``n_dec`` decoder layers: the neck moves
+    into the head, the transformer's modules onto the head, the last
+    cls/reg branch is the encoder-proposal head."""
+    tr = r"^bbox_head\.transformer\."
+    return [
+        (r"^neck\.convs\.(\d+)\.(conv|gn)" + _E, r"bbox_head.neck.\2_\1"),
+        (r"^neck\.extra_convs\.(\d+)\.(conv|gn)" + _E,
+         lambda m: f"bbox_head.neck.extra_{m.group(2)}_{n_in + int(m.group(1))}"),
+        (tr + r"encoder\.layers\.(\d+)\.attentions\.0" + _E, r"bbox_head.enc_\1.attn"),
+        (tr + r"encoder\.layers\.(\d+)" + _E, r"bbox_head.enc_\1"),
+        (tr + r"decoder\.layers\.(\d+)\.attentions\.0\.attn" + _E,
+         r"bbox_head.dec_\1.self_attn"),
+        (tr + r"decoder\.layers\.(\d+)\.attentions\.1" + _E, r"bbox_head.dec_\1.cross_attn"),
+        (tr + r"decoder\.layers\.(\d+)\.ffns\.0\.layers\.0\.0" + _E,
+         r"bbox_head.dec_\1.ffn_fc1"),
+        (tr + r"decoder\.layers\.(\d+)\.ffns\.0\.layers\.1" + _E, r"bbox_head.dec_\1.ffn_fc2"),
+        (tr + r"decoder\.layers\.(\d+)" + _E, r"bbox_head.dec_\1"),
+        (tr + r"pos_trans_fc" + _E, "bbox_head.pos_trans"),
+        (r"^bbox_head\.transformer" + _E, "bbox_head"),
+        (r"^bbox_head\.cls_branches\.(\d+)" + _E,
+         lambda m: "bbox_head." + ("enc_cls" if int(m.group(1)) == n_dec else f"cls_{m.group(1)}")),
+        (r"^bbox_head\.reg_branches\.(\d+)\.([024])" + _E,
+         lambda m: "bbox_head." + ("enc_box" if int(m.group(1)) == n_dec else f"reg_{m.group(1)}")
+         + f".layers_{int(m.group(2)) // 2}"),
+    ]
+
+
+def flax_path(module_name: str, m2f: bool = True, rules=_RULES) -> tuple[str, ...]:
     """The flax module path of the port's module ``module_name``; ``m2f``
-    says that the head owns a Mask2Former decoder (its tables move there)."""
+    says that the head owns a Mask2Former decoder (its tables move there),
+    ``rules`` are the renames to apply (a box head's are
+    ``_bbox_rules(...) + _RULES``)."""
     name = module_name
-    for pattern, repl in _RULES:
+    for pattern, repl in rules:
         if m2f or pattern is not _M2F_TABLES:
             name = re.sub(pattern, repl, name)
     return tuple(name.split("."))
@@ -102,6 +139,17 @@ def _has_m2f(model: nn.Module) -> bool:
     from pairnet_torch.models.decoders.mask2former_decoder import Mask2FormerDecoder
 
     return any(isinstance(m, Mask2FormerDecoder) for m in model.modules())
+
+
+def _bbox_geometry(model: nn.Module):
+    """``(n_in, n_dec)`` of the box head ``model`` holds (its neck's input
+    levels and its decoder layers), or None."""
+    heads = [m for m in model.modules() if isinstance(m, CrossHeadBBox)]
+    if not heads:
+        return None
+    neck = getattr(model, "neck", None)
+    return (len(neck.convs) if neck is not None else 0,
+            len(heads[0].transformer.decoder.layers))
 
 
 def _leaves(tree, prefix=()):
@@ -129,6 +177,10 @@ def _module_leaves(module: nn.Module):
         yield "bias", "params", "bias", None
     elif isinstance(module, nn.Embedding):
         yield "weight", "params", None, None
+    elif isinstance(module, RMSNorm):
+        yield "weight", "params", "weight", None
+    elif isinstance(module, DeformableDetrTransformer):
+        yield "level_embeds", "params", "level_embed", None
     elif isinstance(module, FrozenBatchNorm):
         for n in ("weight", "bias", "running_mean", "running_var"):
             yield n, "constants", n, None
@@ -160,10 +212,12 @@ def tensor_leaves(model: nn.Module, prefix: str = ""):
     T = lambda a: a.T  # noqa: E731
     merges = []  # PatchMerging names: their children's tensors are yielded with them
     m2f = _has_m2f(model)
+    bbox = _bbox_geometry(model)
+    rules = _bbox_rules(*bbox) + _RULES if bbox else _RULES
     for mname, module in model.named_modules():
         if any(mname.startswith(m + ".") for m in merges):
             continue
-        base = flax_path((prefix + mname).rstrip("."), m2f)
+        base = flax_path((prefix + mname).rstrip("."), m2f, rules)
         dst_prefix = f"{mname}." if mname else ""
         if isinstance(module, PatchMerging):
             merges.append(mname)

@@ -14,6 +14,7 @@ from test_torch_helpers import (
     msda_inputs,
     quantize_edge_values,
 )
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 
@@ -43,6 +44,7 @@ from pairnet_torch.ops.deform_attn_int8 import (  # noqa: E402
 )
 from pairnet_torch.ops.hungarian import (  # noqa: E402
     MAX_COLS,
+    SHORT_COLS,
     batched_hungarian,
     batched_hungarian_plain,
     solve_n_le_m_cuda,
@@ -480,18 +482,35 @@ def test_hungarian_kernel_nan_row_terminates():
     assert row2col.shape == (4, 3) and int(steps.max()) <= 3 * 4
 
 
+@pytest.mark.parametrize("kind", ["normal", "ties", "padded", "nan_entry"])
+@pytest.mark.parametrize("B, n, m", [(2, 6, 300), (2, 4, 1000), (3, 300, 6), (2, 64, 22323),
+                                     (1, 100, 37485), (1, 8, MAX_COLS)])
+def test_hungarian_long_instance_matches_plain(kind, B, n, m):
+    """Above SHORT_COLS columns the long instance solves (one launch of it),
+    equal to the plain loop bit for bit: tall problems as given and after
+    the n > m transpose, the detection-only loss's encoder matcher (64 GT
+    boxes against the 22,323 proposals at 800x1344; 100 against 37,485 at
+    1344x1344) and the instance's limit."""
+    long_before = batched_hungarian.long_launches
+    got, want, n_launch = _hungarian_on_card(*_hungarian_case(kind, B, n, m, seed=B * n + m))
+    assert n_launch == 1 and batched_hungarian.long_launches == long_before + 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 def test_hungarian_kernel_raises_above_its_limit():
     """More than MAX_COLS columns (as given, or after the n > m transpose)
     raises and launches nothing; so does n > m given to the kernel itself."""
     cost, = _on_card(np.zeros((1, 3, MAX_COLS + 1), np.float32))
     launches = batched_hungarian.launches
-    with pytest.raises(ValueError, match="n <= m <= 256"):
+    with pytest.raises(ValueError, match=f"n <= m <= {MAX_COLS}"):
         batched_hungarian(cost)
-    with pytest.raises(ValueError, match="n <= m <= 256"):
+    with pytest.raises(ValueError, match=f"n <= m <= {MAX_COLS}"):
         batched_hungarian(cost.transpose(1, 2))
-    with pytest.raises(ValueError, match="n <= m <= 256"):
+    with pytest.raises(ValueError, match=f"n <= m <= {MAX_COLS}"):
         solve_n_le_m_cuda(cost[:, :, :2])
     assert batched_hungarian.launches == launches
+    assert SHORT_COLS == 256
 
 
 def test_hungarian_kernel_calls_in_a_row_on_one_stream():

@@ -9,6 +9,7 @@ torch only, so on a GPU machine without JAX:
 from datetime import timedelta
 
 import pytest
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 

@@ -17,6 +17,7 @@ from pairnet_tpu.data.synthetic import make_synthetic_psg as j_make_synthetic
 from pairnet_tpu.train.builder import build_pipeline_cfg as j_build_pipeline_cfg
 
 from test_torch_helpers import TINY_SPLIT, jax_dataset
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 

@@ -27,6 +27,7 @@ from pairnet_tpu.train.trainer import TrainState as JTrainState
 from pairnet_tpu.train.trainer import make_train_step as j_make_train_step
 from test_torch_dist import Ranks, calls, ddp_nan_guard, ddp_step, ddp_train_cli
 from test_torch_helpers import perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

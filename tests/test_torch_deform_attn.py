@@ -16,6 +16,7 @@ import pairnet_tpu.ops.pallas_deform_attn_v10 as v10
 import pairnet_tpu.ops.pallas_deform_attn_v16 as v16
 from pairnet_tpu.ops.deform_attn import ms_deform_attn as jax_msda
 from test_torch_helpers import MSDA_SHAPES, QUANT_KINDS, msda_inputs, quantize_edge_values
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pairnet_tpu.ops.pallas_deform_bwd2 import _ms_deform_attn_bwd2_impl
 from pairnet_tpu.ops.pallas_deform_bwd3 import _ms_deform_attn_bwd3_impl
 from test_torch_helpers import msda_border_inputs, msda_hotspot_inputs, msda_inputs
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

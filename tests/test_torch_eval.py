@@ -14,6 +14,7 @@ from pairnet_tpu.evaluation import device_eval as j_dev
 from pairnet_tpu.evaluation import runner as j_runner
 from pairnet_tpu.models.heads.pairnet_inference import pairnet_postprocess as j_post
 from test_torch_helpers import TINY_SPLIT, jax_dataset
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

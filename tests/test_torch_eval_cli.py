@@ -42,6 +42,7 @@ from pairnet_tpu.evaluation import runner as j_runner
 from pairnet_tpu.models.heads.pairnet_inference import pairnet_postprocess as j_post
 from pairnet_tpu.train import builder as j_builder
 from test_torch_helpers import TINY_SPLIT, decided_ranks, jax_dataset, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -218,8 +219,8 @@ def test_build_model_equals_flagship(config, tiny):
 
 @pytest.mark.parametrize("change, error, match", [
     ({"type": "SceneGraphTwoStage"}, NotImplementedError, "model type.*ROADMAP"),
-    ({"backbone": {"type": "ResNeXt"}}, NotImplementedError, "backbone.*ROADMAP"),
-    ({"bbox_head": {"type": "CrossHeadBBox"}}, NotImplementedError, "head.*ROADMAP.*bbox"),
+    ({"backbone": {"type": "RegNet"}}, NotImplementedError, "backbone.*ROADMAP"),
+    ({"bbox_head": {"type": "MotifHead"}}, NotImplementedError, r"head.*ROADMAP.*A\.2-A\.3"),
     # every matrix learner of the JAX package is ported: only an unknown one raises
     ({"bbox_head": {"mapper": "conv_huge"}}, KeyError, "unknown matrix learner"),
 ], ids=["change0-model type", "change1-backbone", "change2-head", "change3-mapper"])

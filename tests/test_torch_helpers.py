@@ -2,9 +2,28 @@
 
 Inputs and noise come from numpy seeds and reach both packages as numpy
 arrays. Holds no tests itself.
+
+Every port test file imports :func:`keep_torch_rng`, a module-scoped
+autouse fixture: the file's tests run inside ``torch.random.fork_rng``, so
+torch's global RNG is as the file found it when the next file of its
+xdist worker starts. JAX test files that draw torch weights from the
+global RNG (the mmdet mirrors of ``test_pixel_decoder_parity.py`` and
+``test_pairnet_head_parity.py``) then draw the same ones whatever port
+files ran before them.
 """
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def keep_torch_rng():
+    """Run the importing module's tests with torch's global RNG forked:
+    its state (CPU) is restored when the module's tests are done."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        yield
 
 MSDA_SHAPES = ((20, 30), (10, 15), (5, 8))
 TINY_SPLIT = {"num_images": 8, "num_test": 3, "seed": 1}  # tiny_synthetic's fixture

@@ -14,11 +14,18 @@ import pytest
 from scipy.optimize import linear_sum_assignment
 
 from pairnet_tpu.ops.hungarian import batched_hungarian as j_batched_hungarian
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from pairnet_torch.ops.hungarian import MAX_COLS, PAD_COST, batched_hungarian  # noqa: E402
+from pairnet_torch.ops.hungarian import (  # noqa: E402
+    MAX_COLS,
+    PAD_COST,
+    SHORT_COLS,
+    batched_hungarian,
+    batched_hungarian_plain,
+)
 
 SHAPES = [(7, 7), (11, 5), (5, 11), (20, 24), (100, 24)]
 
@@ -118,10 +125,11 @@ def test_all_ties_matches_jax(n, m):
 
 
 def test_widest_problem_matches_scipy_and_jax():
-    """m = MAX_COLS = 256, the CUDA kernel's limit, with padded columns."""
+    """m = SHORT_COLS = 256, the first CUDA instance's limit, with padded
+    columns."""
     rng = np.random.default_rng(256)
-    cost = rng.normal(size=(2, 12, MAX_COLS)).astype(np.float32)
-    col_mask = np.ones((2, MAX_COLS), bool)
+    cost = rng.normal(size=(2, 12, SHORT_COLS)).astype(np.float32)
+    col_mask = np.ones((2, SHORT_COLS), bool)
     col_mask[1, 200:] = False
     (r2c, c2r), (j_r2c, j_c2r) = _jax_pair(cost, None, col_mask)
     np.testing.assert_array_equal(r2c, j_r2c)
@@ -150,3 +158,55 @@ def test_tall_problem_with_unassigned_column_returns(seed):
             if c >= 0:
                 assert c2r[b, c] == r
         assert sorted(c2r[b][c2r[b] >= 0].tolist()) == np.flatnonzero(r2c[b] >= 0).tolist()
+
+
+@pytest.mark.parametrize("n, m, integer", [(6, 300, False), (4, 1000, False), (300, 6, False),
+                                           (6, 300, True), (64, 2000, False)],
+                         ids=["6x300", "4x1000", "300x6", "6x300-ties", "64x2000"])
+def test_long_problems_match_scipy_and_jax(n, m, integer):
+    """Problems longer than the first CUDA instance takes (m > SHORT_COLS,
+    as given or after the n > m transpose): the plain loop, which the long
+    instance is held to, against JAX (ties included) and scipy (unique
+    optimum), padded rows and columns in the batch. 64 x 2000 is the shape
+    of the detection-only loss's encoder matcher (64 GT boxes against the
+    proposals) at a smaller plane."""
+    cost, row_mask, col_mask = _problems(n, m, seed=n + 3 * m, integer=integer)
+    (r2c, c2r), (j_r2c, j_c2r) = _jax_pair(cost, row_mask, col_mask)
+    np.testing.assert_array_equal(r2c, j_r2c)
+    np.testing.assert_array_equal(c2r, j_c2r)
+    if integer:
+        return
+    for b in range(cost.shape[0]):
+        rows, cols = np.flatnonzero(row_mask[b]), np.flatnonzero(col_mask[b])
+        ri, ci = linear_sum_assignment(cost[b][np.ix_(rows, cols)])
+        want = np.full(n, -1)
+        want[rows[ri]] = cols[ci]
+        np.testing.assert_array_equal(r2c[b], want, err_msg=f"problem {b}")
+
+
+def test_instance_limits():
+    """The two CUDA instances' limits on m: 256 and 65,536 (the encoder's
+    37,485 proposals at 1344x1344 with 4 levels fit)."""
+    assert SHORT_COLS == 256 and MAX_COLS == 65536 >= 37485
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, n, m", [(2, 6, 300), (2, 64, 22323)])
+def test_long_instance_on_the_card_matches_plain(B, n, m):
+    """The long CUDA instance (one launch, no host sync) against the plain
+    loop, bit for bit: a tall problem and the encoder matcher's 64 x 22,323
+    at 800x1344."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cost, row_mask, col_mask = _problems(n, m, seed=B * n + m, integer=False, B=B)
+    on_card = [torch.tensor(a, device="cuda") for a in (cost, row_mask, col_mask)]
+    launches, long_launches = batched_hungarian.launches, batched_hungarian.long_launches
+    syncs = batched_hungarian.syncs
+    got = batched_hungarian(*on_card)
+    torch.cuda.synchronize()
+    assert batched_hungarian.syncs == syncs
+    assert batched_hungarian.launches == launches + 1
+    assert batched_hungarian.long_launches == long_launches + 1
+    want = batched_hungarian_plain(*(torch.tensor(a) for a in (cost, row_mask, col_mask)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

@@ -15,6 +15,7 @@ import pairnet_tpu.ops.pallas_deform_attn_v11 as v11
 import pairnet_tpu.ops.pallas_deform_attn_v12 as v12
 import pairnet_tpu.ops.pallas_deform_attn_v14 as v14
 from test_torch_helpers import msda_inputs
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -14,6 +14,7 @@ from pairnet_tpu.models.layers import sine_positional_encoding as j_sine
 from pairnet_tpu.models.necks.pixel_decoder import DeformableEncoderLayer as JEncLayer
 from pairnet_tpu.models.necks.pixel_decoder import MSDeformAttnPixelDecoder as JPixelDecoder
 from test_torch_helpers import nest, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -13,6 +13,7 @@ import pytest
 from pairnet_tpu.models import losses as jl
 from pairnet_tpu.models import matchers as jm
 from pairnet_tpu.ops import sampling as js
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -17,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pairnet_tpu.models.layers import MultiheadAttention as JMHA
 from pairnet_tpu.ops.pallas_masked_attn import ST, masked_flash_attention as j_flash
 from test_torch_helpers import nest, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -17,6 +17,7 @@ from pairnet_tpu.models.heads.pairnet_inference import panoptic_fusion as j_fusi
 from pairnet_tpu.models.heads.pairnet_inference import pairnet_postprocess as j_post
 from pairnet_tpu.utils.torch_convert import convert_pairnet_checkpoint
 from test_torch_helpers import attention_mask_margin, decided_ranks, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -17,6 +17,7 @@ from pairnet_tpu.config import load_config as j_load_config
 from pairnet_tpu.models.frameworks.psgtr import build_model as j_build_model
 from pairnet_tpu.models.heads.matrix_learner import MAPPERS as J_MAPPERS
 from test_torch_helpers import nest, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

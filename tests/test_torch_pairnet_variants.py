@@ -27,6 +27,7 @@ from pairnet_tpu.models.frameworks.psgtr import build_model as j_build_model
 from pairnet_tpu.train.optim import lr_mult_tree as j_lr_mult_tree
 from pairnet_tpu.train.optim import norm_free_decay_mask as j_decay_mask
 from test_torch_helpers import attention_mask_logits, decided_ranks, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

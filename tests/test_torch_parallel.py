@@ -15,6 +15,7 @@ import pytest
 
 from pairnet_tpu.parallel import mesh as j_mesh
 from test_torch_dist import Ranks, collectives, fail_or_hang, mesh_layouts, run_ranks
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

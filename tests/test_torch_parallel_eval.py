@@ -17,6 +17,7 @@ from pairnet_tpu.models.heads.pairnet_inference import pairnet_postprocess as j_
 from test_torch_dist import Ranks, image_key, planted_apply, sharded_scoring
 from test_torch_eval import _oracle_outputs
 from test_torch_helpers import TINY_SPLIT, jax_dataset
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

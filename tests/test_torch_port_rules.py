@@ -3,6 +3,7 @@ CUDA by default and no fallback from a CUDA tensor, kernel launch counters,
 build rules and build errors."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 
 from test_torch_helpers import msda_inputs
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -82,11 +84,50 @@ def test_import_leaves_jax_out():
         "pairnet_torch.models.heads.psgtr_head, pairnet_torch.models.heads.psgformer_head, "
         "pairnet_torch.models.heads.baseline_head, pairnet_torch.models.heads.psgtr2_head, "
         "pairnet_torch.models.heads.detr4seg_head, pairnet_torch.models.heads.diagnostic, "
-        "pairnet_torch.ops.boxes, pairnet_torch.train.dispatch; "
+        "pairnet_torch.ops.boxes, pairnet_torch.train.dispatch, "
+        "pairnet_torch.models.heads.pairnet_bbox_head, pairnet_torch.models.backbones.resnet; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'orbax', 'pairnet_tpu', 'PIL')); assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+# the port's test files (test_torch_convert.py predates the port; the
+# helpers and the rank functions of test_torch_dist.py hold no tests)
+PORT_TEST_FILES = sorted(p for p in (ROOT / "tests").glob("test_torch_*.py")
+                         if p.name not in ("test_torch_convert.py", "test_torch_helpers.py",
+                                           "test_torch_dist.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TEST_FILES, ids=lambda p: p.name)
+def test_port_test_file_keeps_torch_rng(path):
+    """Every port test file imports ``keep_torch_rng``, the module-scoped
+    autouse fixture that restores torch's global RNG after the file: a JAX
+    test later in the same xdist worker that draws torch weights from the
+    global RNG draws the weights of a run alone."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert any(isinstance(n, ast.ImportFrom) and n.module == "test_torch_helpers"
+               and any(a.name == "keep_torch_rng" for a in n.names) for n in tree.body), path.name
+
+
+def test_port_test_files_draw_nothing_at_import():
+    """Importing every port test module (and its helpers) leaves torch's
+    global RNG as it was: no seed and no draw at module level."""
+    names = [p.stem for p in PORT_TEST_FILES] + ["test_torch_helpers", "test_torch_dist"]
+    code = (
+        "import importlib, sys, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "torch.manual_seed(1234)\n"
+        "bad = []\n"
+        f"for name in {names!r}:\n"
+        "    before = torch.random.get_rng_state()\n"
+        "    importlib.import_module(name)\n"
+        "    if not torch.equal(before, torch.random.get_rng_state()):\n"
+        "        bad.append(name)\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   env={**os.environ, "JAX_PLATFORMS": "cpu"})
 
 
 def test_flagship_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -224,7 +265,7 @@ def test_every_source_is_built_and_binds_its_entry_points():
     entries = {
         "deform_attn_quant": deform_attn_int4.QUANTIZE_FNS + deform_attn_int4.GATHER_FNS,
         "masked_attn": tuple(masked_attn._FN.values()),
-        "hungarian": ("hungarian_solve",),
+        "hungarian": ("hungarian_solve", "hungarian_solve_long"),
     }
     for source, names in entries.items():
         text = (_build.CSRC / f"{source}.cu").read_text()

@@ -42,6 +42,7 @@ from test_torch_helpers import (
     zoo_batch,
     zoo_pair,
 )
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -14,6 +14,7 @@ from pairnet_tpu.models.layers import encoder_reference_points
 from pairnet_tpu.models.necks.pixel_decoder import DeformableEncoderLayer as JEncLayer
 from test_torch_dist import run_ranks, sp_encoder
 from test_torch_helpers import perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

@@ -18,6 +18,7 @@ import pytest
 from pairnet_tpu.models.backbones.swin import SwinTransformer as JSwin
 from pairnet_tpu.utils.torch_convert import convert_swin, unflatten
 from test_torch_helpers import nest, perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

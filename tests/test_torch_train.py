@@ -25,6 +25,7 @@ from pairnet_tpu.train.optim import norm_free_decay_mask as j_decay_mask
 from pairnet_tpu.train.trainer import TrainState as JTrainState
 from pairnet_tpu.train.trainer import make_train_step as j_make_train_step
 from test_torch_helpers import perturb
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

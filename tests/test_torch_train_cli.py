@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from __graft_entry__ import _flagship
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -128,16 +129,18 @@ def test_profiler_knob_writes_a_trace(tmp_path, monkeypatch):
 
 def test_loss_dispatch():
     """PairNetHead's loss takes the config's loss options (``num_points``
-    is the sampling's); the one-stage zoo dispatches too; the bbox head and
-    the two-stage heads raise, naming ROADMAP A.7."""
+    is the sampling's); the one-stage zoo and the box head dispatch too; the
+    two-stage heads raise, naming ROADMAP A.2-A.3."""
     cfg = load_config(TINY)
     fn = get_loss_fn("PairNetHead", cfg)
     assert fn.num_points == 256 and fn.keywords == {"with_seg_losses": True}
     assert get_loss_fn("PairNetHead", {}).num_points == 12544
     assert get_loss_fn("PSGTrHead", {}).num_points == 0
     assert get_loss_fn("BaselineHead", {"loss": {"use_seesaw": True}}).cum_size(56) == 57
-    for head in ("CrossHeadBBox", "IMPHead"):
-        with pytest.raises(NotImplementedError, match="A.7"):
+    assert get_loss_fn("CrossHeadBBox", {}).num_points == 0
+    assert get_loss_fn("CrossHeadBBox", {"loss": {"detection_only": True}}).cum_size(50) == 50
+    for head in ("IMPHead", "MotifHead"):
+        with pytest.raises(NotImplementedError, match=r"A\.2-A\.3"):
             get_loss_fn(head, cfg)
 
 

@@ -15,6 +15,7 @@ from scipy.ndimage import binary_dilation
 
 from pairnet_tpu.utils import visualize as jvis
 from test_torch_helpers import TINY_SPLIT
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)

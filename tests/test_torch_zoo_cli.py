@@ -42,6 +42,7 @@ from test_torch_helpers import (
     tree_torch,
     zoo_batch,
 )
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -294,7 +295,7 @@ def test_losses_sum_to_world_one_on_two_ranks(tmp_path):
     cases, want = {}, {}
     for head, (kw, cfg) in ZOO_HEADS.items():
         bb = ResNet(depth=26, base_width=8)
-        model = init_weights(PSGTr(bb, _heads()[head](bb.out_channels, **kw)), seed=1).eval()
+        model = init_weights(PSGTr(bb, *_heads()[head](bb.out_channels, **kw)), seed=1).eval()
         with torch.no_grad():
             out = tree_numpy(model(torch.tensor(images)))
         out = {k: v for k, v in out.items() if k not in ("sub_pos", "obj_pos")}

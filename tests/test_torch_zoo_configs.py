@@ -5,7 +5,7 @@ variables: the flax shape tree comes from ``jax.eval_shape`` of the JAX
 model's ``init`` (nothing compiled), and every port tensor takes a leaf of
 that tree of its shape, every leaf taken. Also the dispatch of each head's
 loss and post-processing, and the heads still to port raising with their
-ROADMAP item."""
+ROADMAP item (the box head is built in ``test_torch_bbox_configs.py``)."""
 
 import glob
 import os
@@ -17,6 +17,7 @@ import pytest
 
 from pairnet_tpu.config import load_config as j_load_config
 from pairnet_tpu.train.builder import build_detector as j_build_detector
+from test_torch_helpers import keep_torch_rng  # noqa: F401  (torch's RNG kept per file)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -68,7 +69,7 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("config, item", [
-    ("deformable_detr/cross_r50_coco.py", "bbox head"),
+    ("motifs/panoptic_fpn_r50_predcls_psg.py", r"A\.2-A\.3"),
     ("imp/panoptic_fpn_r50_sgdet_psg.py", "two-stage"),
 ])
 def test_heads_still_to_port_raise(config, item):
