@@ -184,12 +184,48 @@ published configs at full width with seeded random weights:
      its ms, search steps and ns a step; and each config's f32 step on a
      seeded batch of 2 split into forward, targets, loss, backward and
      optimizer (CUDA events), with the card's busy share (profiler).
-Then one JSON line of kernels (with this path's entries, ``<name>@bbox``
-and ``hungarian_long@od``), one of serving, one of training, one of
-evaluation, one of the train CLI, one of Swin-B and the other heads
+Phases 29-32 drive the two-stage family (``SceneGraphTwoStage`` with the
+MOTIFS, IMP, GPS-Net and VCTree heads on a frozen Panoptic FPN), built by
+``build_model`` from the published configs at full width with seeded
+random weights:
+ 29. ``csrc/nms.cu`` against the plain sweep, keep masks equal: the RPN's
+     geometry (2 images x 4,819 boxes, thr 0.7), the detections' (2 x 256
+     with 80 class offsets, thr 0.5) and 3 x 300 boxes, with a quarter of
+     the scores tied and pairs planted at IoU exactly 0.5 and 0.7; IoUs
+     within 1e-6 of a threshold (off it) counted and refused. Then, after
+     phase 30, the kernel on that phase's own RPN and detection calls: ms
+     as issued and spun, the plain sweep's ms, the barriers, and the bound:
+     the larger of the bytes (boxes and valid read, keep written) and the
+     operations of the IoUs this run's sweep computes (each kept box
+     against the later boxes still in play) at the f32 rate.
+ 30. sgdet served at 800x1344, batch 2: ``PanopticFPN`` R-50 (80 things,
+     53 stuff, 256 proposals, 64 detections; f32; its seeded box
+     classifier x8, regressions x0.1, mask logits x4) -> the fusion -> the
+     head over all 4,032 pairs an image: MOTIFS bf16 and f32, IMP, GPS-Net
+     and VCTree bf16, through the test CLI's own sgdet calls
+     (``detector_segments`` with the detector loaded from a work dir,
+     ``sgdet_batch``, ``make_twostage_apply_fn``, ``twostage_postprocess``);
+     2 NMS launches a forward and no plain sweep; finite outputs; ms per
+     batch, peak GiB and ms by part (CUDA events recorded by ``PartTimer``'s
+     hooks on those calls' modules and methods); the fusion's operations on
+     the card (a CUDA graph of it).
+ 31. ``pairnet_torch.tools.test.main`` on the MOTIFS predcls config
+     (device and numpy engines), the IMP predcls config in sgcls mode (IMP
+     classifies the GT boxes itself; the MOTIFS sgcls config raises, as
+     it needs ``det_dists``, checked) and the MOTIFS sgdet config over 4
+     synthetic 800x1333 test images, batch 2: JAX's key sets, finite
+     values, 2 NMS launches a detector forward; img/s.
+ 32. ``pairnet_torch.tools.train.main`` on the MOTIFS and VCTree predcls
+     configs (f32, batch 2) over phase 24's 4 train images, one epoch of 2
+     steps, then ``--resume`` for a second: finite losses, a head
+     parameter moved, every BatchNorm statistic unchanged; s per step.
+Then one JSON line of kernels (with this path's entries, ``<name>@bbox``,
+``hungarian_long@od`` and ``nms``), one of serving, one of training, one
+of evaluation, one of the train CLI, one of Swin-B and the other heads
 (``swin``), one of phases 19-21 (``parallel``), one of phases 22-24
-(``zoo``), one of phases 25-28 (``bbox``), the card's name and power
-limit, and the final line {"ok": true, "device": {...}}.
+(``zoo``), one of phases 25-28 (``bbox``), one of phases 29-32
+(``twostage``), the card's name and power limit, and the final line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -261,6 +297,81 @@ def check(ok, what):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class PartTimer:
+    """CUDA-event spans of the named parts of a path, recorded by hooks on
+    the path's own objects: forward pre/post hooks on modules, and wrappers
+    on bound methods (an instance attribute over the class's) and on module
+    functions. They record only between ``start`` and ``stop``; ``ms`` sums
+    each part's spans. ``PartTimer(parent)`` records into the parent's
+    spans and removes only its own hooks."""
+
+    def __init__(self, parent=None):
+        self.root = parent or self
+        self.on, self.spans, self.undo = False, [], []
+
+    @staticmethod
+    def _event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def wrap(self, name, fn):
+        root = self.root
+
+        def timed(*a, **k):
+            if not root.on:
+                return fn(*a, **k)
+            begin = root._event()
+            out = fn(*a, **k)
+            root.spans.append((name, begin, root._event()))
+            return out
+
+        return timed
+
+    def method(self, name, obj, attr):
+        setattr(obj, attr, self.wrap(name, getattr(obj, attr)))
+        self.undo.append(lambda: delattr(obj, attr))
+
+    def function(self, name, module, attr):
+        orig = getattr(module, attr)
+        setattr(module, attr, self.wrap(name, orig))
+        self.undo.append(lambda: setattr(module, attr, orig))
+
+    def modules(self, name, *mods):
+        root = self.root
+        for mod in mods:
+            begins = []
+
+            def pre(m, args, begins=begins):
+                if root.on:
+                    begins.append(root._event())
+
+            def post(m, args, out, begins=begins):
+                if root.on:
+                    root.spans.append((name, begins.pop(), root._event()))
+
+            self.undo += [mod.register_forward_pre_hook(pre).remove,
+                          mod.register_forward_hook(post).remove]
+
+    def start(self):
+        self.spans.clear()
+        self.on = True
+
+    def stop(self):
+        self.on = False
+
+    def remove(self):
+        while self.undo:
+            self.undo.pop()()
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for name, begin, end in self.spans:
+            out[name] = out.get(name, 0.0) + begin.elapsed_time(end)
+        return out
 
 
 def msda_inputs(B, dtype, seed, dev):
@@ -1851,6 +1962,378 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
             "seconds": bbox_s}, entries
 
 
+TS_DIR = ZOO_DIR  # configs/
+TS_SERVE = {"MotifHead": "motifs/panoptic_fpn_r50_sgdet_psg.py",  # phase 30
+            "IMPHead": "imp/panoptic_fpn_r50_sgdet_psg.py",
+            "GPSHead": "gpsnet/panoptic_fpn_r50_sgdet_psg.py",
+            "VCTreeHead": "vctree/panoptic_fpn_r50_sgdet_psg.py"}
+TS_SCORE = {"predcls": ("motifs/panoptic_fpn_r50_predcls_psg.py",),  # phase 31
+            "sgcls": ("imp/panoptic_fpn_r50_predcls_psg.py", "model.relation_head.mode=sgcls"),
+            "sgdet": ("motifs/panoptic_fpn_r50_sgdet_psg.py",)}
+TS_NO_DISTS = "motifs/panoptic_fpn_r50_sgcls_psg.py"  # needs det_dists: raises on GT boxes
+TS_TRAIN = ("motifs/panoptic_fpn_r50_predcls_psg.py", "vctree/panoptic_fpn_r50_predcls_psg.py")
+# phase 31: 4 synthetic test images at 800x1333 (sgdet's 117 full-resolution
+# segment masks an image are scored on the host by the numpy oracle)
+TS_SCORE_SPLIT = ("data.dataset.data_root=", "data.dataset.synthetic={'num_images':8,"
+                  "'num_test':4,'height':800,'width':1333,'seed':7}")
+TS_BATCH = 2
+TS_IMAGE_SHAPE = (800, 1333)  # the resized image inside IMG
+TS_DET = {"type": "PanopticFPN", "backbone": {"type": "ResNet", "depth": 50}, "num_things": 80,
+          "num_stuff": 53, "num_proposals": 256, "max_dets": 64, "score_thr": 0.3}
+# f32 operations of one IoU with both areas at hand (csrc/nms.cu::box_iou: 2 min, 2 max and
+# 2 sub for the overlap's sides, 2 max at 0, 1 product, 2 sums for the union, 1 max, 1
+# divide, the compare), and of one box's area (2 sub, 2 max, 1 product)
+IOU_OPS, AREA_OPS = 14, 5
+TWOSTAGE_KEYS = {  # the JAX engines' keys by mode (evaluate_twostage), and the CLI's two
+    mode: ({f"{mode}_recall_R@{k}" for k in TOPKS} | {f"{mode}_mean_recall_mR@{k}" for k in TOPKS}
+           | {f"{mode}_group_{g}_R@{k}" for g in ("tt", "ts", "st", "ss") for k in TOPKS}
+           | {f"{mode}_eval_time_s", f"{mode}_images_per_s"}
+           | ({f"pair_accuracy_A@{k}" for k in TOPKS} | {"object_mean_iou", "object_iou_recall"}
+              if mode != "sgdet" else {f"phrdet_recall_R@{k}" for k in TOPKS}))
+    for mode in ("predcls", "sgcls", "sgdet")}
+
+
+def nms_case(B, n, thr, dev, seed, offset=False):
+    """Sorted boxes (B, n, 4), valid (B, n) for the NMS kernel: n random
+    boxes over an 800x1344 image with a quarter of the scores tied to a
+    neighbour's, pairs at IoU exactly 0.5 and 0.7 planted (exact in f32),
+    a tenth invalid; with ``offset`` the detections' class offsets (80
+    classes) applied as ``batched_nms`` applies them."""
+    from pairnet_torch.ops.nms import score_order
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xy = torch.rand((B, n, 2), generator=g, device=dev) * torch.tensor([1344.0, 800.0], device=dev)
+    wh = 8 + torch.rand((B, n, 2), generator=g, device=dev) * 300
+    boxes = torch.cat([xy, xy + wh], -1)
+    for i in range(0, n - 2, 9):  # a 10 x 10 box, its 10 x 5 (IoU 0.5) and 10 x 7 (0.7) parts
+        x, y = xy[:, i].floor().unbind(-1)
+        boxes[:, i] = torch.stack([x, y, x + 10, y + 10], -1)
+        boxes[:, i + 1] = torch.stack([x, y, x + 10, y + 5], -1)
+        boxes[:, i + 2] = torch.stack([x, y, x + 10, y + 7], -1)
+    scores = torch.rand((B, n), generator=g, device=dev)
+    scores[:, 2::4] = scores[:, 1::4][:, : scores[:, 2::4].shape[1]]
+    valid = torch.rand((B, n), generator=g, device=dev) > 0.1
+    if offset:
+        labels = torch.randint(0, 80, (B, n), generator=g, device=dev)
+        mc = boxes.abs().amax(dim=(-2, -1), keepdim=True) + 1.0
+        boxes = boxes + labels.float()[..., None] * (2.0 * mc)
+    order = score_order(scores, valid)
+    take = lambda x: torch.gather(x, 1, order if x.dim() == 2 else order[..., None].expand(
+        -1, -1, x.shape[-1]))  # noqa: E731
+    return take(boxes).contiguous(), take(valid).contiguous()
+
+
+def near_threshold(boxes, thr):
+    """Pairs of boxes (B, N, 4) whose IoU lies within 1e-6 of ``thr`` but
+    not on it, and those exactly on it."""
+    from pairnet_torch.ops.boxes import box_iou
+
+    iou = box_iou(boxes, boxes)[0]
+    iou = iou.masked_fill(torch.eye(iou.shape[-1], dtype=torch.bool, device=iou.device), -1.0)
+    d = (iou - thr).abs()
+    return int(((d < 1e-6) & (d > 0)).sum()) // 2, int((d == 0).sum()) // 2
+
+
+def nms_swept(boxes, valid, keep, thr):
+    """The IoUs this run's sweep computes: each kept box i against every
+    later valid box j that no kept box before i has suppressed. j is
+    suppressed by the first kept box that overlaps it by more than
+    ``thr``, and is swept by the kept boxes up to that one."""
+    from pairnet_torch.ops.boxes import box_iou
+
+    n = keep.shape[-1]
+    idx = torch.arange(n, device=keep.device)
+    sweeps = keep[:, :, None] & valid[:, None, :] & (idx[:, None] < idx[None, :])
+    hits = sweeps & (box_iou(boxes, boxes)[0] > thr)
+    first = torch.where(hits.any(1), hits.to(torch.uint8).argmax(1), n)  # (B, N): by i
+    return int((sweeps & (idx[None, :, None] <= first[:, None, :])).sum())
+
+
+def nms_flops(boxes, valid, keep, thr):
+    """The operations of this run's sweep: its IoUs, and each valid box's area once."""
+    return IOU_OPS * nms_swept(boxes, valid, keep, thr) + AREA_OPS * int(valid.sum())
+
+
+def twostage_phases(smi, record):
+    """Phases 29-32 (see the module doc): the NMS kernel, and the two-stage
+    family (the Panoptic FPN detector, MOTIFS / IMP / GPS-Net / VCTree)
+    served, scored and trained at full width. ``record`` is main's
+    kernel-vs-plain check and timing. Returns (the ``twostage`` JSON entry,
+    the kernel entries of this path)."""
+    import shutil
+
+    from pairnet_torch.config import apply_overrides, load_config
+    from pairnet_torch.evaluation.runner import sgdet_batch
+    from pairnet_torch.models.frameworks import panoptic_fpn as pfpn_mod
+    from pairnet_torch.models.frameworks.psgtr import build_model
+    from pairnet_torch.models.heads.twostage.heads import twostage_postprocess
+    from pairnet_torch.ops import nms as nms_mod
+    from pairnet_torch.tools import test as test_cli
+    from pairnet_torch.tools import train as train_cli
+    from pairnet_torch.tools.msda_kernels import cuda_ms, graph_nodes
+
+    dev = torch.device(DEVICE)
+    plain_nms = {"calls": 0}
+    orig_plain = nms_mod.nms_sorted_plain
+
+    def counted_plain(*a, **k):
+        plain_nms["calls"] += 1
+        return orig_plain(*a, **k)
+
+    def equal_keep(k, p):
+        check(torch.equal(k, p), f"nms keep masks differ at {int((k != p).sum())} boxes")
+        return 0.0
+
+    # --- (29) the NMS kernel against the plain sweep ---
+    cases = {}
+    for name, (B, n, thr, offset) in {"rpn": (2, 4819, 0.7, False),
+                                      "detections": (2, 256, 0.5, True),
+                                      "ties_thr_0.5": (3, 300, 0.5, False)}.items():
+        boxes, valid = nms_case(B, n, thr, dev, seed=29 + n, offset=offset)
+        got = nms_mod.nms_sorted_cuda(boxes, valid, thr)
+        want = nms_mod.nms_sorted_plain(boxes, valid, thr)
+        torch.cuda.synchronize()
+        equal_keep(got, want)
+        near, exact = near_threshold(boxes, thr)
+        cases[name] = {"B": B, "N": n, "thr": thr, "kept": int(got.sum()),
+                       "iou_within_1e-6_of_thr": near, "iou_exactly_thr": exact}
+        check(near == 0, f"nms {name}: {near} IoUs within 1e-6 of the threshold (not on it)")
+        check(offset or exact > 0, f"nms {name}: no planted pair at IoU exactly {thr}")
+    log(f"[29] {smi}: nms kernel vs plain sweep: keep masks equal "
+        + "; ".join(f"{k} (B {c['B']}, N {c['N']}, thr {c['thr']}): kept {c['kept']}, IoUs "
+                    f"exactly at thr {c['iou_exactly_thr']}, within 1e-6 of it "
+                    f"{c['iou_within_1e-6_of_thr']}" for k, c in cases.items()))
+
+    # --- (30) serving sgdet: detector -> fusion -> relation head, full width ---
+    # the CLI's sgdet path (evaluate_twostage's batch: detector_segments' apply,
+    # sgdet_batch, make_twostage_apply_fn, twostage_postprocess), the detector
+    # loaded from a work dir as a user's; ms by part from CUDA events that hooks
+    # on its modules and calls record
+    g = torch.Generator(device=dev).manual_seed(30)
+    images = torch.randn((TS_BATCH, *IMG, 3), generator=g, device=dev)
+    shape = torch.tensor([TS_IMAGE_SHAPE] * TS_BATCH, device=dev)
+    T, S = TS_DET["num_things"], TS_DET["num_stuff"]
+    det_work = tempfile.mkdtemp(prefix="chip_smoke_detector_")
+    seeded = build_model(TS_DET, device=dev, seed=30)
+    with torch.no_grad():  # seeded weights made decisive: peaky classes, boxes near anchors
+        seeded.roi_head.bbox_head.fc_cls.weight.mul_(8.0)
+        seeded.roi_head.bbox_head.fc_reg.weight.mul_(0.1)
+        seeded.rpn_head.rpn_reg.weight.mul_(0.1)
+        seeded.roi_head.mask_head.conv_logits.weight.mul_(4.0)
+    os.makedirs(os.path.join(det_work, "ckpts"))
+    torch.save({"epoch": 1, "state": {"model": seeded.state_dict()}},
+               os.path.join(det_work, "ckpts", "epoch_1.pt"))
+    del seeded
+    captured = {}
+
+    def capturing_cuda(boxes, valid, thr):
+        captured.setdefault(boxes.shape[1], (boxes.clone(), valid.clone(), thr))
+        return orig_cuda(boxes, valid, thr)
+
+    orig_cuda = nms_mod.nms_sorted_cuda
+    timer = PartTimer()
+    timer.function("fusion", pfpn_mod, "heuristic_fusion_segments")  # read by detector_segments
+    try:
+        detector_apply = test_cli.detector_segments(
+            {**TS_DET, "checkpoint": det_work}, TS_DET["backbone"],
+            load_config(os.path.join(TS_DIR, TS_SERVE["MotifHead"])).model.relation_head
+            .num_classes, 64, 4, dev)
+    finally:
+        timer.remove()
+        shutil.rmtree(det_work, ignore_errors=True)
+    detector = detector_apply.detector
+    timer.modules("detector backbone + FPN", detector.backbone, detector.neck)
+    timer.method("RPN + NMS", detector, "proposals")
+    timer.method("RoI box head + NMS", detector, "detect")
+    timer.method("mask head + paste", detector, "paste_masks")
+    timer.modules("semantic head", detector.semantic_head)
+    pairs_host = timer.wrap("pairs (host)", sgdet_batch)
+    post_host = timer.wrap("post-processing (host ranking)", twostage_postprocess)
+
+    def sgdet(apply_fn):
+        """One sgdet batch as evaluate_twostage serves it: (outputs,
+        post-processed results, the detector's segments, the batch)."""
+        det = detector_apply(images, shape)
+        batch = pairs_host({"image": images, "image_shape": shape}, det, 64 * 63)
+        out = apply_fn(batch)
+        res = [post_host(out, batch, b) for b in range(TS_BATCH)]
+        return out, res, det, batch
+
+    serving = {}
+    nms_expect = None
+    try:
+        for head, path in TS_SERVE.items():
+            cfg = load_config(os.path.join(TS_DIR, path))
+            model = build_model(cfg.model, device=dev, seed=31)
+            head_timer = PartTimer(timer)
+            head_timer.modules("relation backbone + FPN", model.backbone, model.neck)
+            head_timer.method("relation frontend (RoI + union features)", model.relation_head,
+                              "frontend")
+            head_timer.method("context + relation scores", model.relation_head, "predict")
+            serving[head] = {}
+            for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                if head != "MotifHead" and dname == "f32":
+                    continue
+                model = model.to(dtype)
+                apply_fn = test_cli.make_twostage_apply_fn(model, dev, dtype)
+                sgdet(apply_fn)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                nms_mod.nms_sorted.launches = 0
+                plain_nms["calls"] = 0
+                nms_mod.nms_sorted_plain = counted_plain
+                if head == "MotifHead" and dname == "bf16":
+                    nms_mod.nms_sorted_cuda = capturing_cuda
+                timer.start()
+                try:
+                    out, res, det, batch = sgdet(apply_fn)
+                    torch.cuda.synchronize()
+                finally:
+                    timer.stop()
+                    nms_mod.nms_sorted_plain = orig_plain
+                    nms_mod.nms_sorted_cuda = orig_cuda
+                launches = nms_mod.nms_sorted.launches
+                if head == "MotifHead" and dname == "bf16":
+                    nms_expect = launches
+                check(launches == 2 and plain_nms["calls"] == 0,
+                      f"{head} {dname} sgdet: {launches} nms launches, "
+                      f"{plain_nms['calls']} plain calls")
+                P = batch["pairs"].shape[1]
+                check(P == 64 * 63, f"{P} pairs an image")
+                check(tuple(out["rel_scores"].shape) == (TS_BATCH, P, 57)
+                      and bool(torch.isfinite(out["rel_scores"]).all())
+                      and bool(torch.isfinite(out["refine_scores"]).all()),
+                      f"{head} {dname} outputs {tuple(out['rel_scores'].shape)}")
+                ms = cuda_ms(torch, lambda: sgdet(apply_fn), 2)
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                valid = det[3]
+                serving[head][dname] = {
+                    "ms_per_batch": ms, "peak_gib": peak, "ms_by_part": timer.ms(),
+                    "nms_launches_per_forward": launches,
+                    "plain_nms_calls": plain_nms["calls"],
+                    "segments_valid_per_image": valid.sum(1).tolist(),
+                    "things_kept_per_image": valid[:, :64].sum(1).tolist(),
+                    "valid_pairs_per_image": batch["pair_valid"].sum(1).tolist(),
+                    "ranked_pairs_per_image": [len(r["rel_pair_idxes"]) for r in res]}
+            head_timer.remove()
+            del model, apply_fn
+            torch.cuda.empty_cache()
+    finally:
+        timer.remove()
+    with torch.inference_mode():
+        dets, sem, masks = detector(images, shape, with_masks=True)
+        fusion_nodes = graph_nodes(torch, lambda: pfpn_mod.heuristic_fusion_segments(
+            dets, masks, sem, T, S))
+    motif = serving["MotifHead"]["bf16"]
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in motif["ms_by_part"].items())
+    log(f"[30] {smi}: sgdet at 800x1344, batch {TS_BATCH}: PanopticFPN R-50 (f32) -> fusion "
+        f"-> head (4032 pairs an image): nms launches per forward {nms_expect}, plain calls 0; "
+        f"fusion puts {dict(fusion_nodes)} on the card; MotifHead bf16 "
+        f"{motif['ms_per_batch']:.1f} ms ({parts}); "
+        + "; ".join(f"{h} {d} {v['ms_per_batch']:.1f} ms, peak {v['peak_gib']:.2f} GiB"
+                    for h, r in serving.items() for d, v in r.items()))
+
+    # the kernel on the main path's inputs: the RPN's call (and the detections')
+    entries = []
+    rpn_boxes, rpn_valid, rpn_thr = captured[max(captured)]
+    keep = nms_mod.nms_sorted_cuda(rpn_boxes, rpn_valid, rpn_thr)
+    _, entry = record("nms", nms_expect, lambda: nms_mod.nms_sorted_cuda(rpn_boxes, rpn_valid,
+                                                                          rpn_thr),
+                      lambda: nms_mod.nms_sorted_plain(rpn_boxes, rpn_valid, rpn_thr),
+                      equal_keep, (rpn_boxes, rpn_valid),
+                      nms_flops(rpn_boxes, rpn_valid, keep, rpn_thr),
+                      f"the RPN's call, B {TS_BATCH}, N {rpn_boxes.shape[1]}, thr {rpn_thr}",
+                      phase=29, source="pairnet_torch/csrc/nms.cu",
+                      replaces="pairnet_tpu/ops/nms.py:17 (nms: a lax.fori_loop, not a "
+                               "pl.pallas_call site)")
+    entry["sequential_steps"] = rpn_boxes.shape[1]
+    entry["barriers_per_image"] = keep.sum(1).tolist()
+    entry["ious_swept"] = nms_swept(rpn_boxes, rpn_valid, keep, rpn_thr)
+    entries.append(entry)
+    det_boxes, det_valid, det_thr = captured[min(captured)]
+    keep_d = nms_mod.nms_sorted_cuda(det_boxes, det_valid, det_thr)
+    _, entry_d = record("nms@detections", None,
+                        lambda: nms_mod.nms_sorted_cuda(det_boxes, det_valid, det_thr),
+                        lambda: nms_mod.nms_sorted_plain(det_boxes, det_valid, det_thr),
+                        equal_keep, (det_boxes, det_valid),
+                        nms_flops(det_boxes, det_valid, keep_d, det_thr),
+                        f"the detections' class-offset call, N {det_boxes.shape[1]}",
+                        phase=29)
+    nms_entry = {"rpn": {k: entry[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by")},
+                 "detections": {k: entry_d[k] for k in ("ms", "device_ms", "plain_ms",
+                                                         "bound_ms", "bound_by")},
+                 "cases": cases}
+
+    # --- (31) scoring through the test CLI ---
+    scoring = {}
+    for mode, engine in (("predcls", "device"), ("predcls", "numpy"), ("sgcls", "device"),
+                         ("sgdet", "numpy")):
+        nms_mod.nms_sorted.launches = 0
+        path, *extra = TS_SCORE[mode]
+        metrics = test_cli.main([os.path.join(TS_DIR, path), "--eval", mode,
+                                 "--eval-engine", engine, "--batch-size", str(TS_BATCH),
+                                 "--device", DEVICE, "--cfg-options", *TS_SCORE_SPLIT, *extra])
+        torch.cuda.synchronize()
+        check(set(metrics) == TWOSTAGE_KEYS[mode],
+              f"{mode} keys {sorted(set(metrics) ^ TWOSTAGE_KEYS[mode])}")
+        check(all(math.isfinite(v) for v in metrics.values()), f"{mode} metrics finite")
+        if mode == "sgdet":
+            check(nms_mod.nms_sorted.launches == 4, f"sgdet scoring: "
+                  f"{nms_mod.nms_sorted.launches} nms launches for 2 detector forwards")
+        scoring[f"{mode} {engine}"] = {"config": " ".join(TS_SCORE[mode]), "metrics": metrics,
+                                       "img_per_s": metrics[f"{mode}_images_per_s"]}
+    try:
+        test_cli.main([os.path.join(TS_DIR, TS_NO_DISTS), "--eval", "sgcls", "--batch-size",
+                       str(TS_BATCH), "--device", DEVICE, "--cfg-options", *TS_SCORE_SPLIT])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "det_dists" in refused,
+          f"{TS_NO_DISTS} scored sgcls without det_dists: {refused}")
+    scoring["refused"] = {"config": TS_NO_DISTS, "error": refused}
+    log(f"[31] {smi}: test CLI over 4 synthetic 800x1333 images, batch {TS_BATCH}, f32: "
+        + "; ".join(f"{k} {v['img_per_s']} img/s" for k, v in scoring.items() if k != "refused")
+        + f"; JAX's key sets, values finite; {TS_NO_DISTS} sgcls refused (no det_dists)")
+
+    # --- (32) training through the train CLI ---
+    training = {}
+    for path in TS_TRAIN:
+        work = tempfile.mkdtemp(prefix="chip_smoke_twostage_train_")
+        try:
+            opts = [*ZOO_TRAIN_SPLIT, "data.samples_per_device=2"]
+            cfg = apply_overrides(load_config(os.path.join(TS_DIR, path)), opts)
+            init = build_model(cfg.model, device=dev, seed=cfg.get("seed", 10086)).state_dict()
+            runs = []
+            for extra in (["--max-epochs", "1"], ["--resume", "--max-epochs", "2"]):
+                summary = train_cli.main([os.path.join(TS_DIR, path), "--work-dir", work,
+                                          "--device", DEVICE, *extra, "--cfg-options", *opts])
+                torch.cuda.synchronize()
+                check(summary["steps"] == 2, f"{path}: {summary['steps']} steps")
+                check(all(math.isfinite(v) for v in summary["last"].values()),
+                      f"{path} losses {summary['last']}")
+                runs.append({"start_epoch": summary["start_epoch"], "losses": summary["last"],
+                             "s_per_step": summary["seconds"] / summary["steps"]})
+            trained = torch.load(os.path.join(work, "ckpts", "epoch_2.pt"), map_location=dev,
+                                 weights_only=False)["state"]["model"]
+            moved = not torch.equal(trained["relation_head.rel_compress.weight"],
+                                    init["relation_head.rel_compress.weight"])
+            stats = [k for k in init if "running_" in k]
+            frozen = all(torch.equal(trained[k], init[k]) for k in stats)
+            check(moved and frozen and runs[1]["start_epoch"] == 1,
+                  f"{path}: head moved {moved}, {len(stats)} BN statistics unchanged {frozen}")
+            training[path] = {"runs": runs, "head_moved": moved, "bn_statistics": len(stats),
+                              "bn_statistics_unchanged": frozen}
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    log(f"[32] {smi}: train CLI, 4 train images at 800x1333, batch 2, f32, 2 steps then "
+        f"--resume: " + "; ".join(f"{p} {[round(r['s_per_step'], 3) for r in t['runs']]} s per "
+                                  f"step, BN statistics unchanged ({t['bn_statistics']})"
+                                  for p, t in training.items()))
+    return {"nms": nms_entry, "serving": serving, "fusion_graph_nodes": dict(fusion_nodes),
+            "scoring": scoring, "training": training}, entries
+
+
 def main():
     # --- (0) the card ---
     if not torch.cuda.is_available():
@@ -3091,6 +3574,8 @@ def main():
                "quantize": compare_quantize, "gather": compare_gather, "bwd": compare_bwd}
     bbox, bbox_kernels = bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls)
     kernels.extend(bbox_kernels)
+    twostage, twostage_kernels = twostage_phases(smi, record)
+    kernels.extend(twostage_kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
@@ -3131,6 +3616,7 @@ def main():
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"bbox": bbox}))
+    print(json.dumps({"twostage": twostage}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))

@@ -223,6 +223,9 @@ class Loader:
     stream seeded ``seed``, as the JAX package's loader does. ``drop_last``
     (default: ``train``) drops a trailing partial batch; otherwise it is
     padded with its first sample and ``batch_valid`` marks the real ones.
+    ``sample_transform(sample, rng)`` (e.g. :func:`to_twostage_batch`)
+    runs on each preprocessed sample with that sample's generator (the one
+    stream, after all the batch's samples, as JAX's loader runs it).
 
     Data parallelism: ``batch_size`` is the global batch; rank ``rank`` of
     ``world`` preprocesses only rows ``rank * b : (rank + 1) * b`` of each
@@ -236,8 +239,9 @@ class Loader:
 
     def __init__(self, dataset, cfg: PipelineConfig, batch_size: int, train: bool = False,
                  seed: int = 0, drop_last: bool | None = None, num_workers: int | None = None,
-                 prefetch: int = 2, rank: int = 0, world: int = 1):
+                 prefetch: int = 2, rank: int = 0, world: int = 1, sample_transform=None):
         self.dataset = dataset
+        self.sample_transform = sample_transform
         self.cfg = cfg
         self.batch_size = batch_size
         self.train = train
@@ -275,7 +279,8 @@ class Loader:
 
     def _make_sample(self, i: int, pos: int) -> dict:
         rng = np.random.default_rng([self.seed, pos])
-        return preprocess_sample(self.dataset, i, self.cfg, self.train, rng)
+        s = preprocess_sample(self.dataset, i, self.cfg, self.train, rng)
+        return s if self.sample_transform is None else self.sample_transform(s, rng)
 
     def _finalize(self, samples: list[dict], n_real: int) -> dict:
         b = self.batch_size // self.world
@@ -290,8 +295,11 @@ class Loader:
         plan = self._plan(order)
         if self.num_workers <= 0:
             for _, idxs, n_real in plan:
-                yield self._finalize([preprocess_sample(self.dataset, i, self.cfg, self.train,
-                                                        self.rng) for i in idxs], n_real)
+                samples = [preprocess_sample(self.dataset, i, self.cfg, self.train, self.rng)
+                           for i in idxs]
+                if self.sample_transform is not None:  # after the batch's samples, as JAX's
+                    samples = [self.sample_transform(s, self.rng) for s in samples]
+                yield self._finalize(samples, n_real)
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             def submit(start, idxs, n_real):
@@ -305,3 +313,36 @@ class Loader:
                 if nxt < len(plan):
                     pending.append(submit(*plan[nxt]))
                 yield self._finalize([f.result() for f in futs], n_real)
+
+
+def to_twostage_batch(sample: dict, max_pairs: int, train: bool,
+                      rng: np.random.Generator | None = None,
+                      relation_map: np.ndarray | None = None) -> dict:
+    """A preprocessed sample with the two-stage relation-head fields: the
+    detections are the GT boxes, labels 1-based (0 background); train pairs
+    by :func:`~pairnet_torch.models.heads.twostage.core.sample_train_pairs`
+    from ``rng``, test pairs all ordered pairs of the ``max_inst`` slots
+    (the first ``max_pairs``)."""
+    from pairnet_torch.models.heads.twostage.core import all_test_pairs, sample_train_pairs
+
+    rng = rng or np.random.default_rng()
+    n_valid = int(sample["gt_valid"].sum())
+    G = sample["gt_valid"].shape[0]
+    out = dict(sample)
+    out["det_boxes"] = sample["gt_boxes"]
+    out["det_labels"] = np.where(sample["gt_valid"], sample["gt_labels"] + 1, 0).astype(np.int32)
+    out["det_valid"] = sample["gt_valid"]
+    if relation_map is None:
+        relation_map = np.zeros((G, G), np.int64)
+        for s, o, p in sample["gt_rels"][sample["rel_valid"]]:
+            relation_map[s, o] = p
+    if train:
+        pairs, labels, valid = sample_train_pairs(relation_map, n_valid, max_pairs, rng=rng)
+    else:
+        pairs, valid = all_test_pairs(n_valid, G)
+        pairs, valid = pairs[:max_pairs], valid[:max_pairs]
+        labels = relation_map[pairs[:, 0], pairs[:, 1]].astype(np.int32)
+    out["pairs"] = pairs
+    out["pair_labels"] = labels.astype(np.int32)
+    out["pair_valid"] = valid
+    return out

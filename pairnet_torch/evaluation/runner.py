@@ -13,7 +13,10 @@ Counterpart of ``pairnet_tpu/evaluation/runner.py``:
   head's own post-processing (``train/dispatch.get_postprocess_fn``), the
   scoring path of every head but Pair-Net's; a box head's triplets
   (``BoxTripletPrediction``) score with ``detection_method="bbox"``;
-* :func:`evaluate_pq`: Panoptic Quality of the fused panoptic maps.
+* :func:`evaluate_pq`: Panoptic Quality of the fused panoptic maps;
+* :func:`evaluate_twostage`: predcls / sgcls / sgdet of the two-stage
+  relation heads (GT boxes, or the frozen detector's segments), on the
+  numpy oracle or the device matcher.
 
 ``apply_fn(images) -> output dict`` takes the loader's numpy image batch and
 returns the head's tensors. Padded batch entries (``batch_valid``) are
@@ -32,6 +35,7 @@ from __future__ import annotations
 import functools
 import math
 import pickle
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -39,7 +43,13 @@ import torch.distributed as dist
 
 from pairnet_torch.data.pipeline import Loader, PipelineConfig
 from pairnet_torch.data.sg import shard
-from pairnet_torch.evaluation.sgg_eval import SGGroundTruth, SGPrediction, sgg_evaluate
+from pairnet_torch.evaluation.sgg_eval import (
+    SGGroundTruth,
+    SGPrediction,
+    sg_object_iou,
+    sg_pair_accuracy,
+    sgg_evaluate,
+)
 from pairnet_torch.parallel.mesh import all_reduce_arrays, is_distributed, world_info
 
 
@@ -475,3 +485,129 @@ def evaluate_pq(apply_fn, postprocess_fn, dataset, pipe_cfg: PipelineConfig,
             metrics[f"{group}_{k}"] = round(float(vals[k]), 4)
         metrics[f"{group}_n"] = vals["n"]
     return metrics
+
+
+def evaluate_twostage(apply_fn, dataset, pipe_cfg: PipelineConfig, max_pairs: int | None = None,
+                      batch_size: int = 1, mode: str = "predcls", num_predicates: int = 56,
+                      num_things: int = 80, iou_thr: float = 0.5, detector_apply=None,
+                      eval_engine: str = "numpy", device=None) -> dict:
+    """predcls / sgcls / sgdet scoring of a two-stage relation head.
+
+    predcls and sgcls: the detections are the GT boxes
+    (``to_twostage_batch``), and the predictions ground in the GT regions
+    (predcls also takes the GT labels). sgdet: ``detector_apply(images,
+    image_shape) -> (boxes, labels 1-based, dists, valid, mask_logits at the
+    mask stride)`` provides them, and the pairs are all ordered pairs of its
+    slots (the first ``max_pairs``; JAX's quirk: valid when both slots are
+    below the number of valid segments). Every pair is ranked by
+    ``twostage_postprocess``. ``apply_fn(batch) -> outputs`` takes the
+    loader's numpy batch. ``eval_engine="device"`` (predcls / sgcls) matches
+    with :func:`device_eval_twostage_single` on ``device`` (default: the
+    CPU) instead of the numpy oracle, with the same keys. Sharded as
+    :func:`evaluate_model`."""
+    from pairnet_torch.data.pipeline import to_twostage_batch
+    from pairnet_torch.models.heads.twostage.heads import twostage_postprocess
+
+    if max_pairs is None:  # test time scores all ordered pairs
+        max_pairs = pipe_cfg.max_inst * (pipe_cfg.max_inst - 1)
+    if mode == "sgdet" and detector_apply is None:
+        raise ValueError("sgdet needs detector_apply (the frozen detector)")
+    if eval_engine == "device" and mode == "sgdet":
+        raise ValueError("device engine for two-stage sgdet: use evaluate_model_device")
+    transform = None
+    if mode != "sgdet":
+        def transform(s, rng):
+            return to_twostage_batch(s, max_pairs, train=False, rng=rng)
+    rank, world = world_info()
+    preds: list[SGPrediction] = []
+    for batch in Loader(shard(dataset, rank, world), pipe_cfg, batch_size,
+                        sample_transform=transform):
+        det_masks = None
+        if mode == "sgdet":
+            det = detector_apply(batch["image"], batch["image_shape"])
+            batch, det_masks = sgdet_batch(batch, det, max_pairs), det[4]
+        out = apply_fn(batch)
+        for b in range(batch["image"].shape[0]):
+            if not batch["batch_valid"][b]:
+                continue
+            res = twostage_postprocess(out, batch, b)
+            masks = None
+            if det_masks is not None:
+                rh, rw = (int(x) for x in batch["image_shape"][b])
+                oh, ow = (int(x) for x in batch["orig_shape"][b])
+                ch = max(1, int(np.ceil(rh / pipe_cfg.mask_stride)))
+                cw = max(1, int(np.ceil(rw / pipe_cfg.mask_stride)))
+                masks = _resize_logits(det_masks[b][:, :ch, :cw].float(), (oh, ow)) > 0.0
+            preds.append(SGPrediction(labels=res["labels"].astype(np.int64),
+                                      rel_pair_idxes=res["rel_pair_idxes"].astype(np.int64),
+                                      rel_dists=res["rel_dists"].astype(np.float32),
+                                      obj_scores=res["obj_scores"], masks=masks))
+    preds = _gather_in_order(preds)
+    metrics = None
+    if rank == 0:
+        gts = load_groundtruths(dataset)
+        assert len(gts) == len(preds), (len(gts), len(preds))
+        if mode != "sgdet":
+            # predcls / sgcls ground in the GT objects: their regions are the
+            # GT masks; predcls also takes the GT labels
+            preds = [replace(p, masks=gt.masks, labels=gt.labels if mode == "predcls"
+                             else p.labels) for p, gt in zip(preds, gts)]
+        if eval_engine == "device":
+            metrics = _twostage_device_metrics(gts, preds, mode, num_predicates, num_things,
+                                               iou_thr, device=device)
+        else:
+            metrics = sgg_evaluate(gts, preds, mode=mode, num_predicates=num_predicates,
+                                   iou_thr=iou_thr, detection_method="pan_seg",
+                                   num_things=num_things)
+            if mode != "sgdet":
+                metrics.update(sg_pair_accuracy(gts, preds, num_things=num_things,
+                                                iou_thr=iou_thr))
+                metrics.update(sg_object_iou(gts, preds, iou_thr=iou_thr))
+    if is_distributed():
+        box = [metrics]
+        dist.broadcast_object_list(box, src=0)
+        metrics = box[0]
+    return metrics
+
+
+def sgdet_batch(batch: dict, det, max_pairs: int) -> dict:
+    """``batch`` with the two-stage sgdet fields of the detector's outputs
+    ``det`` = (boxes, labels, dists, valid, ...) (B, G, ...): all ordered
+    pairs of the G slots, the first ``max_pairs`` (JAX's quirk: a pair is
+    valid when both slots are below the number of valid segments)."""
+    from pairnet_torch.models.heads.twostage.core import all_test_pairs
+
+    boxes, labels, dists, valid = det[:4]
+    B, G = labels.shape
+    n_valid = valid.sum(1).tolist()
+    pairs = np.zeros((B, max_pairs, 2), np.int64)
+    pvalid = np.zeros((B, max_pairs), bool)
+    for b in range(B):
+        p, v = all_test_pairs(int(n_valid[b]), G)
+        pairs[b, : len(p)], pvalid[b, : len(v)] = p[:max_pairs], v[:max_pairs]
+    return dict(batch, det_boxes=boxes.float(), det_labels=labels.int(), det_dists=dists.float(),
+                det_valid=valid, pairs=pairs, pair_valid=pvalid,
+                pair_labels=np.zeros((B, max_pairs), np.int32))
+
+
+def _twostage_device_metrics(gts, preds, mode, num_predicates, num_things, iou_thr,
+                             topks=(20, 50, 100), device=None) -> dict:
+    """The device matcher's scoring of GT-grounded predcls / sgcls
+    predictions (with the pair accuracy and object-IoU keys)."""
+    from pairnet_torch.evaluation.device_eval import (
+        SgdetAccumulator,
+        device_eval_twostage_single,
+    )
+
+    acc = SgdetAccumulator(num_predicates, num_things, topks, twostage=True)
+    for gt, pred in zip(gts, preds):
+        if len(gt.rels) == 0:
+            continue
+        args = [torch.as_tensor(a, device=device) for a in
+                (gt.labels, gt.rels, gt.masks, pred.labels, pred.rel_pair_idxes, pred.rel_dists,
+                 pred.masks)]
+        matched, matched_pair, rel_valid, best_sub, best_obj, has_cand = (
+            device_eval_twostage_single(*args, iou_thr, topks))
+        acc.add(matched, None, rel_valid, gt.rels, gt.labels)
+        acc.add_twostage(matched_pair, best_sub, best_obj, has_cand, rel_valid, iou_thr)
+    return acc.metrics(acc.bucket_stats(), mode)

@@ -20,6 +20,7 @@ from pairnet_torch.models.backbones.resnet import ResNet
 from pairnet_torch.models.backbones.swin import SwinTransformer, WindowMSA
 from pairnet_torch.models.frameworks.psgtr import PSGTr
 from pairnet_torch.models.heads.pairnet_head import PairNetHead
+from pairnet_torch.models.heads.twostage.core import FrequencyBias, RunningBatchNorm
 from pairnet_torch.models.layers import (
     FrozenBatchNorm,
     MSDeformAttention,
@@ -75,13 +76,26 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             elif isinstance(m, MultiheadAttention):
                 m.in_proj_weight.normal_(0.0, 1.0 / math.sqrt(m.embed_dims), generator=g)
                 m.in_proj_bias.zero_()
-            elif isinstance(m, FrozenBatchNorm):
+            elif isinstance(m, nn.ConvTranspose2d):  # weight (in, out, kh, kw)
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+                m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
+                m.bias.zero_()
+            elif isinstance(m, (nn.LSTM, nn.GRUCell)):  # lecun-normal gates, zero biases
+                for name, p in m.named_parameters(recurse=False):
+                    if name.startswith("weight"):
+                        p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=g)
+                    else:
+                        p.zero_()
+            elif isinstance(m, (FrozenBatchNorm, RunningBatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
             if isinstance(getattr(m, "level_embeds", None), nn.Parameter):
                 m.level_embeds.normal_(0.0, 1.0, generator=g)
+        for m in model.modules():
+            if isinstance(m, FrequencyBias):  # zero without dataset statistics, as in JAX
+                m.reset_parameters()
         for m in model.modules():
             if isinstance(m, MSDeformAttention):
                 m.sampling_offsets.weight.zero_()

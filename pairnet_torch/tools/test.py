@@ -15,7 +15,10 @@ oracle); every other one-stage head (PSGTr, PSGFormer, the Mask2Former
 baselines, PSGTr2, DETR4Seg, the box Pair-Net ``CrossHeadBBox``, which
 scores boxes: ``detection_method="bbox"``) through its own
 post-processing and the host oracle, as the JAX CLI routes them; PQ through the head's
-post-processing. Under ``torchrun`` the ranks
+post-processing. A two-stage model (``SceneGraphTwoStage``) scores predcls and
+sgcls on GT boxes (either engine) and sgdet through the frozen detector of the
+config's ``model.detector``, in f32 whatever ``--dtype``, as JAX's CLI scores
+it; PQ exits for it, as JAX's does. Under ``torchrun`` the ranks
 score disjoint shards of the split (image i on rank i mod world) and merge
 the metrics exactly (``evaluation/runner.py``); rank 0 logs and writes
 ``--out`` and ``--save-results``. The MSDA kernels follow the JAX package's
@@ -128,9 +131,9 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
-    if cfg.model.type == "SceneGraphTwoStage":
-        raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.2-A.3)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
+    if cfg.model.type == "SceneGraphTwoStage":
+        return _main_twostage(args, cfg, rank, device)
     impl = deform_impl(args.dtype)
     flash = os.environ.get("PAIRNET_FLASH_ATTN") == "1"
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
@@ -172,11 +175,16 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
         else:
             metrics = runner.evaluate_model(apply_fn, dataset, pipe_cfg,
                                             results_out=args.save_results, **kwargs)
+    return _report(args, metrics, t0, len(dataset), rank, device)
+
+
+def _report(args, metrics: dict, t0: float, n_images: int, rank: int, device) -> dict:
+    """Add the time and rate to the metrics, log them, write ``--out``."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     metrics[f"{args.eval}_eval_time_s"] = round(dt, 2)
-    metrics[f"{args.eval}_images_per_s"] = round(len(dataset) / dt, 3)
+    metrics[f"{args.eval}_images_per_s"] = round(n_images / dt, 3)
 
     for k, v in sorted(metrics.items()):
         logging.info("%s: %.4f", k, v)
@@ -185,6 +193,106 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
             json.dump(metrics, f, indent=2)
         logging.info("metrics written to %s", args.out)
     return metrics
+
+
+def head_dists(seg, num_dets: int, num_things: int, num_classes: int):
+    """The fused segments' distributions in a relation head's label space
+    of ``num_classes``: background at 0, the ``num_dets`` detections'
+    things at 1..T with their box-head probabilities (whose background is
+    last), the stuff segments as the one-hot of their label."""
+    T, C = num_things, num_classes
+    k = min(T, C - 1)  # the things the head's label space holds
+    dists = seg.dists.new_zeros((*seg.labels.shape, C))
+    dists[:, :num_dets, 0] = seg.dists[:, :num_dets, T]
+    dists[:, :num_dets, 1:k + 1] = seg.dists[:, :num_dets, :k]
+    stuff = seg.labels[:, num_dets:].long().clamp(0, C - 1)
+    dists[:, num_dets:] = (stuff[..., None] == torch.arange(C, device=stuff.device)).to(
+        dists.dtype)
+    return dists
+
+
+def detector_segments(det_cfg: dict, backbone_cfg, num_classes: int, max_dets: int,
+                      mask_stride: int, device):
+    """``detector_apply(images, image_shape)`` of the two-stage sgdet path:
+    the frozen ``PanopticFPN`` of ``det_cfg`` (its own ``backbone``, else a
+    copy of ``backbone_cfg``; weights from its ``checkpoint`` work dir, else
+    seeded) in f32, then :func:`heuristic_fusion_segments`. Returns the
+    segments' (boxes, labels, dists, valid, mask logits +-1), the dists in
+    the relation head's label space of ``num_classes`` (:func:`head_dists`):
+    JAX passes the box head's (T + 1)-wide distribution with background
+    last, which its sgdet heads cannot take at the published widths (81
+    against 134). ``detector_apply.detector`` is the frozen detector."""
+    from pairnet_torch.models.frameworks.panoptic_fpn import heuristic_fusion_segments
+    from pairnet_torch.train.builder import build_model
+
+    det_cfg = dict(det_cfg)
+    det_cfg.setdefault("type", "PanopticFPN")
+    det_cfg.setdefault("max_dets", max_dets)
+    det_cfg.setdefault("backbone", dict(backbone_cfg))
+    ckpt = det_cfg.pop("checkpoint", None)
+    detector = load_weights(build_model(det_cfg, device=device), ckpt).float()
+    T, S = detector.num_things, detector.num_stuff
+
+    def detector_apply(images, image_shape):
+        with torch.inference_mode():
+            img = torch.as_tensor(images).to(device=device, dtype=torch.float32)
+            shape = torch.as_tensor(image_shape).to(device)
+            dets, sem, det_masks = detector(img, shape, with_masks=True)
+            seg = heuristic_fusion_segments(dets, det_masks, sem, T, S, mask_stride=mask_stride)
+            return (seg.boxes, seg.labels, head_dists(seg, dets.labels.shape[1], T, num_classes),
+                    seg.valid, torch.where(seg.masks, 1.0, -1.0))
+
+    detector_apply.detector = detector
+    return detector_apply
+
+
+def make_twostage_apply_fn(model, device, dtype):
+    """``apply_fn(batch) -> outputs``: a two-stage batch (numpy arrays or
+    tensors) on ``device``, its image in ``dtype``; f32 outputs."""
+
+    def apply_fn(batch):
+        b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        b["image"] = b["image"].to(dtype)
+        with torch.inference_mode():
+            out = model(b)
+        return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in out.items()}
+
+    return apply_fn
+
+
+def _main_twostage(args, cfg, rank: int, device: torch.device) -> dict:
+    """The two-stage branch, as JAX's CLI runs it: the relation model in f32
+    (JAX scores it uncast, whatever ``--dtype``), predcls / sgcls on GT
+    boxes (``--eval-engine`` device or numpy), sgdet through the frozen
+    detector on the numpy oracle. PQ exits, as JAX's does. Under ``torchrun``
+    :func:`evaluate_twostage` scores this rank's shard and merges the
+    predictions on rank 0, which hands every rank the metrics."""
+    from pairnet_torch import native
+    from pairnet_torch.evaluation.runner import evaluate_twostage
+    from pairnet_torch.train.builder import build_dataset, build_detector, build_pipeline_cfg
+
+    if args.eval == "PQ":
+        raise SystemExit("PQ for the two-stage path scores its frozen detector; evaluate the "
+                         "detector's own config instead")
+    dataset = build_dataset(cfg, split=args.split)
+    pipe_cfg = build_pipeline_cfg(cfg, train=False)
+    native.available()
+    model = load_weights(build_detector(cfg, device=device), args.checkpoint).float()
+    detector_apply = None
+    if args.eval == "sgdet":
+        detector_apply = detector_segments(cfg.model.get("detector", {}), cfg.model.backbone,
+                                           cfg.model.relation_head.num_classes,
+                                           pipe_cfg.max_inst, pipe_cfg.mask_stride, device)
+    logging.info("scoring the two-stage %s on %s, f32", cfg.model.relation_head.type, device)
+    t0 = time.time()
+    metrics = evaluate_twostage(
+        make_twostage_apply_fn(model, device, torch.float32), dataset, pipe_cfg,
+        max_pairs=cfg.data.get("test_max_pairs"), batch_size=args.batch_size, mode=args.eval,
+        num_predicates=cfg.num_relation_classes, num_things=cfg.evaluation.num_things,
+        iou_thr=cfg.evaluation.get("iou_thr", 0.5), detector_apply=detector_apply,
+        eval_engine=args.eval_engine if args.eval in ("predcls", "sgcls") else "numpy",
+        device=device)
+    return _report(args, metrics, t0, len(dataset), rank, device)
 
 
 if __name__ == "__main__":

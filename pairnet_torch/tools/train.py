@@ -17,9 +17,11 @@ step is data parallel (``train/trainer.py``): the global batch is
 ``schedule``, AdamW with its ``custom_lr_keys``, weight decay and
 ``grad_clip``, the forward in ``compute_dtype`` (bf16, else f32 masters
 only). ``config.json`` is written into the work dir, checkpoints into its
-``ckpts/epoch_<n>.pt`` (which ``pairnet_torch.tools.test`` scores). Every one-stage head of the port
+``ckpts/epoch_<n>.pt`` (which ``pairnet_torch.tools.test`` scores). Every head of the port
 trains, with its own loss (``train/dispatch.py``); the Seesaw baseline
-carries R + 1 Seesaw counts, as JAX's CLI sizes them.
+carries R + 1 Seesaw counts, as JAX's CLI sizes them. A two-stage model
+(``SceneGraphTwoStage``) trains on GT boxes with ``data.max_pairs``
+(default 256) relation pairs an image sampled by ``to_twostage_batch``.
 ``--max-steps`` caps the epochs at ceil(max_steps / steps per epoch), as
 the JAX CLI does. A run starts at epoch 0 unless ``--resume`` continues
 from the newest checkpoint. ``--load-from`` (or the config's ``load_from``)
@@ -88,8 +90,6 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
-    if cfg.model.type == "SceneGraphTwoStage":
-        raise NotImplementedError("two-stage models are not yet ported (ROADMAP A.2-A.3)")
     head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
     from pairnet_torch.train.dispatch import get_loss_fn
 
@@ -104,10 +104,18 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     dataset = build_dataset(cfg, split="train")
     pipe_cfg = build_pipeline_cfg(cfg, train=True)
     batch_size = cfg.data.samples_per_device * world  # the global batch
+    transform = None
+    if cfg.model.type == "SceneGraphTwoStage":  # GT boxes and sampled relation pairs
+        from pairnet_torch.data.pipeline import to_twostage_batch
+
+        max_pairs = cfg.data.get("max_pairs", 256)
+
+        def transform(s, rng):
+            return to_twostage_batch(s, max_pairs, train=True, rng=rng)
 
     def loader_fn(epoch):
         return Loader(dataset, pipe_cfg, batch_size, train=True, seed=seed + epoch, rank=rank,
-                      world=world)
+                      world=world, sample_transform=transform)
 
     steps_per_epoch = max(1, len(loader_fn(0)))
 
@@ -149,9 +157,9 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
         val_dataset = build_dataset(cfg, split="test")
         val_pipe_cfg = build_pipeline_cfg(cfg, train=False)
 
-        def val_loader_fn(epoch):
+        def val_loader_fn(epoch):  # JAX's two-stage val pairs are train-sampled too
             return Loader(val_dataset, val_pipe_cfg, batch_size, train=False, rank=rank,
-                          world=world)
+                          world=world, sample_transform=transform)
 
     t0 = time.perf_counter()
     last = trainer.fit(loader_fn, max_epochs, val_loader_fn=val_loader_fn, resume=args.resume)

@@ -15,13 +15,12 @@ from __future__ import annotations
 import functools
 from typing import Callable
 
-_TWO_STAGE = ("MotifHead", "IMPHead", "GPSHead", "VCTreeHead")
+TWO_STAGE = ("MotifHead", "IMPHead", "GPSHead", "VCTreeHead")
 
 
 def _not_ported(head_type: str):
-    item = ("A.2-A.3: the two-stage models" if head_type in _TWO_STAGE
-            else "A: the model zoo")
-    return NotImplementedError(f"head type {head_type!r} is not ported yet (ROADMAP {item})")
+    return NotImplementedError(f"head type {head_type!r} is not ported yet (ROADMAP A: the "
+                               "model zoo)")
 
 
 def _plain_loss(loss, loss_cfg, num_points, takes_points=True):
@@ -97,12 +96,32 @@ def get_loss_fn(head_type: str, cfg, reduce=None) -> Callable:
 
         num_points = loss_cfg.pop("num_points", 2048)
         return _plain_loss(detr4seg_loss, loss_cfg, num_points)
+    if head_type in TWO_STAGE:
+        from pairnet_torch.models.heads.twostage.heads import twostage_loss
+        from pairnet_torch.models.heads.twostage.vctree import vctree_binary_loss
+
+        def fn(outputs, batch, points, cum_samples, targets=None):
+            losses = twostage_loss(outputs, batch, **loss_cfg)
+            if head_type == "VCTreeHead":  # + the tree's binary loss
+                losses["loss_tree"] = vctree_binary_loss(outputs["relatedness"], batch,
+                                                         reduce=loss_cfg.get("reduce"))
+                losses["loss_total"] = losses["loss_total"] + losses["loss_tree"]
+            return losses, cum_samples
+
+        fn.num_points = 0
+        fn.cum_size = lambda num_relations: num_relations
+        return fn
     raise _not_ported(head_type)
 
 
 def get_postprocess_fn(head_type: str) -> Callable:
     """Per-image raw outputs -> TripletPrediction (BoxTripletPrediction for
-    the box head)."""
+    the box head; the two-stage heads' ``twostage_postprocess(outputs,
+    batch, b)`` dict)."""
+    if head_type in TWO_STAGE:
+        from pairnet_torch.models.heads.twostage.heads import twostage_postprocess
+
+        return twostage_postprocess
     if head_type == "PairNetHead":
         from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
 

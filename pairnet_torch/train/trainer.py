@@ -54,7 +54,7 @@ from pairnet_torch.parallel.mesh import (
     is_distributed,
     world_info,
 )
-from pairnet_torch.train.dispatch import get_loss_fn
+from pairnet_torch.train.dispatch import TWO_STAGE, get_loss_fn
 from pairnet_torch.train.optim import GRAD_CLIP, clip_by_global_norm, set_lr
 
 logger = logging.getLogger("pairnet_torch")
@@ -129,14 +129,25 @@ def upcast(tree, dtype):
     return tree.float() if tree.dtype == dtype else tree
 
 
-def forward(model, image, compute_dtype=None):
-    """The model's forward, in ``compute_dtype`` if given: bf16 copies of
-    every f32 parameter and buffer, a bf16 image, f32 outputs."""
+def forward(model, inputs, compute_dtype=None):
+    """The model's forward on ``inputs`` (an image, or a two-stage model's
+    batch dict), in ``compute_dtype`` if given: bf16 copies of every f32
+    parameter and buffer, a bf16 image, f32 outputs."""
     if compute_dtype is None:
-        return model(image)
+        return model(inputs)
     tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     cast = {n: t.to(compute_dtype) if t.dtype == torch.float32 else t for n, t in tensors.items()}
-    return upcast(functional_call(model, cast, (image.to(compute_dtype),)), compute_dtype)
+    if isinstance(inputs, dict):
+        inputs = dict(inputs, image=inputs["image"].to(compute_dtype))
+    else:
+        inputs = inputs.to(compute_dtype)
+    return upcast(functional_call(model, cast, (inputs,)), compute_dtype)
+
+
+def model_inputs(batch: dict, head_type: str):
+    """What the model's forward takes: the image, or the whole batch for a
+    two-stage relation head (boxes, labels and pairs ride in it)."""
+    return batch if head_type in TWO_STAGE else batch["image"]
 
 
 PHASES = ("forward", "targets", "loss", "backward", "optimizer")
@@ -182,7 +193,7 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
                     torch.cuda.manual_seed(dropout_seed)
             else:
                 torch.random.default_generator.manual_seed(dropout_seed)
-            out = forward(model, image, compute_dtype)
+            out = forward(model, model_inputs(batch, head_type), compute_dtype)
         mark("forward")
         targets = pairnet_targets(out, batch, points) if pairnet else None
         mark("targets")
@@ -224,7 +235,8 @@ def make_val_step(model, loss_kwargs: dict | None = None, head_type: str = "Pair
         points = _rank_points(image.shape[0], loss_fn.num_points, _draw_seeds(g, 1)[0],
                               image.device)
         model.eval()
-        losses, _ = loss_fn(model(image), batch, points, state.cum_samples)
+        losses, _ = loss_fn(model(model_inputs(batch, head_type)), batch, points,
+                            state.cum_samples)
         return losses
 
     return val_step

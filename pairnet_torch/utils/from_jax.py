@@ -37,7 +37,10 @@ import torch
 from torch import nn
 
 from pairnet_torch.models.backbones.swin import PatchMerging, WindowMSA
+from pairnet_torch.models.frameworks.panoptic_fpn import ChwLinear
 from pairnet_torch.models.heads.pairnet_bbox_head import CrossHeadBBox, DeformableDetrTransformer
+from pairnet_torch.models.heads.twostage.contexts import DecoderRNN
+from pairnet_torch.models.heads.twostage.core import RunningBatchNorm
 from pairnet_torch.models.layers import FrozenBatchNorm, MultiheadAttention, RMSNorm
 
 # torch module name -> flax module path, applied in order on the dotted name
@@ -121,6 +124,51 @@ def _bbox_rules(n_in: int, n_dec: int):
     ]
 
 
+# the two-stage models' names (``convert_panoptic_fpn``, ``convert_motif_head``,
+# ``convert_imp_head``, ``convert_gps_head``, ``convert_vctree_head``): mmdet's
+# FPN, Panoptic FPN heads and the reference's relation heads
+_TWO_STAGE_RULES = [
+    (r"^neck\.lateral_convs\.(\d+)\.conv" + _E, r"neck.lateral_\1"),
+    (r"^neck\.fpn_convs\.(\d+)\.conv" + _E, r"neck.fpn_conv_\1"),
+    (r"^roi_head\.", ""),
+    (r"^bbox_head\.shared_fcs\.([01])" + _E, lambda m: f"bbox_head.shared_fc{int(m.group(1)) + 1}"),
+    (r"^mask_head\.convs\.(\d)\.conv" + _E, r"mask_head.conv\1"),
+    (r"^semantic_head\.conv_upsample_layers\.(\d)\.conv\.(\d)\.(conv|gn)" + _E,
+     r"semantic_head.up\1_\3\2"),
+    (r"\.visual_bbox_head\.0" + _E, ".fc1"),
+    (r"\.visual_bbox_head\.2" + _E, ".fc2"),
+    (r"\.spatial_conv\.0\.(conv|bn)" + _E, r".spatial.\g<1>1"),
+    (r"\.spatial_conv\.2\.(conv|bn)" + _E, r".spatial.\g<1>2"),
+    (r"\.pos_embed\.0" + _E, ".pos_fc1"),
+    (r"\.pos_embed\.1" + _E, ".pos_bn"),
+    (r"\.pos_embed\.2" + _E, ".pos_fc2"),
+    (r"\.(box|overlap)_embed\.0" + _E, r".\1_embed"),
+    (r"\.(box|overlap)_embed\.1" + _E, r".\1_bn"),
+    (r"\.(sub_vert|obj_vert|out_edge|in_edge)_w_fc\.0" + _E, r".\1_w_fc"),
+    (r"\.(project_input|W_t3)\.0" + _E, r".\1"),
+    (r"\.trans\.0" + _E, ".t1"),
+    (r"\.trans\.1" + _E, ".t_ln"),
+    (r"\.trans\.3" + _E, ".t2"),
+    (r"\.multi_layer_lstm\.0\.treeLSTM_foreward\.treeLSTM" + _E, ".fwd"),
+    (r"\.multi_layer_lstm\.0\.treeLSTM_backward\.treeLSTM" + _E, ".bwd"),
+    (r"\.freq_bias\.obj_baseline" + _E, ".freq_bias.pred_baseline"),
+]
+
+
+def _twostage_rules(model: nn.Module, prefix: str = ""):
+    """The two-stage models' renames (for a model of, or a module inside,
+    the two-stage frameworks), with the MOTIFS label decoder's parameters
+    under its flax scan's ``step``; None for another model."""
+    kinds = ("pairnet_torch.models.frameworks.panoptic_fpn", "pairnet_torch.models.necks.fpn",
+             "pairnet_torch.models.frameworks.twostage", "pairnet_torch.models.heads.twostage.")
+    if not any(type(m).__module__.startswith(kinds) for m in model.modules()):
+        return None
+    names = [(prefix + name).rstrip(".") for name, m in model.named_modules()
+             if isinstance(m, DecoderRNN)]
+    steps = [(r"^" + re.escape(name) + r"\.", name + ".step.") for name in names]
+    return steps + _TWO_STAGE_RULES
+
+
 def flax_path(module_name: str, m2f: bool = True, rules=_RULES) -> tuple[str, ...]:
     """The flax module path of the port's module ``module_name``; ``m2f``
     says that the head owns a Mask2Former decoder (its tables move there),
@@ -164,7 +212,12 @@ def _module_leaves(module: nn.Module):
     """(port tensor name, collection, flax leaf name, numpy -> torch layout)
     for the tensors a module owns directly."""
     T = lambda a: a.T  # noqa: E731
-    if isinstance(module, nn.Linear):
+    if isinstance(module, ChwLinear):  # the JAX kernel's rows are (h, w, c)
+        c, h, w = module.roi_shape
+        yield "weight", "params", "kernel", lambda a: (
+            a.T.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(a.shape[1], -1))
+        yield "bias", "params", "bias", None
+    elif isinstance(module, nn.Linear):
         yield "weight", "params", "kernel", T
         if module.bias is not None:
             yield "bias", "params", "bias", None
@@ -181,9 +234,17 @@ def _module_leaves(module: nn.Module):
         yield "weight", "params", "weight", None
     elif isinstance(module, DeformableDetrTransformer):
         yield "level_embeds", "params", "level_embed", None
+    elif isinstance(module, nn.ConvTranspose2d):  # flax's taps are spatially flipped
+        yield "weight", "params", "kernel", lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)
+        yield "bias", "params", "bias", None
     elif isinstance(module, FrozenBatchNorm):
         for n in ("weight", "bias", "running_mean", "running_var"):
             yield n, "constants", n, None
+    elif isinstance(module, RunningBatchNorm):
+        yield "weight", "params", "scale", None
+        yield "bias", "params", "bias", None
+        yield "running_mean", "batch_stats", "mean", None
+        yield "running_var", "batch_stats", "var", None
     elif isinstance(module, WindowMSA):
         yield "relative_position_bias_table", "params", "relative_position_bias_table", None
 
@@ -204,6 +265,34 @@ def _merge_leaves(module: PatchMerging):
     yield "reduction.weight", "params", ("reduction", "kernel"), lambda a: a[order].T
 
 
+def _recurrent_leaves(module, base):
+    """An ``nn.LSTM`` (flax ``OptimizedLSTMCell`` under a masked scan: gates
+    i, f, g, o as ``i*`` / ``h*`` Dense kernels, the summed biases on
+    ``h*``, which the port carries in ``bias_ih`` with ``bias_hh`` zero) or an
+    ``nn.GRUCell`` (flax ``GRUCell``: gates r, z, n; the summed r/z biases
+    on ``ir`` / ``iz``, the input- and hidden-side n biases on ``in`` /
+    ``hn``; the port's ``bias_hh`` r/z chunks zero)."""
+    cat_t = lambda arrs: np.concatenate([a.T for a in arrs])  # noqa: E731
+    if isinstance(module, nn.GRUCell):
+        gates = [base + (f"{side}{g}",) for side in "ih" for g in "rzn"]
+        ih, hh = gates[:3], gates[3:]
+        yield "weight_ih", "params", [p + ("kernel",) for p in ih], cat_t
+        yield "weight_hh", "params", [p + ("kernel",) for p in hh], cat_t
+        yield "bias_ih", "params", [p + ("bias",) for p in ih], np.concatenate
+        yield "bias_hh", "params", [hh[2] + ("bias",)], lambda arrs: np.concatenate(
+            [np.zeros_like(arrs[0]), np.zeros_like(arrs[0]), arrs[0]])
+        return
+    dirs = [("", ("fwd",)), ("_reverse", ("bwd",))] if module.bidirectional else [("", ())]
+    for suffix, d in dirs:
+        cell = base + d + ("step", "cell")
+        hs = [cell + (f"h{g}",) for g in "ifgo"]
+        yield f"weight_ih_l0{suffix}", "params", [cell + (f"i{g}", "kernel") for g in "ifgo"], cat_t
+        yield f"weight_hh_l0{suffix}", "params", [p + ("kernel",) for p in hs], cat_t
+        yield f"bias_ih_l0{suffix}", "params", [p + ("bias",) for p in hs], np.concatenate
+        yield f"bias_hh_l0{suffix}", "params", [p + ("bias",) for p in hs], lambda arrs: (
+            np.zeros_like(np.concatenate(arrs)))
+
+
 def tensor_leaves(model: nn.Module, prefix: str = ""):
     """For every parameter and buffer of ``model``: (port tensor name,
     collection, the flax leaf paths it is made of, numpy leaves -> torch
@@ -213,7 +302,9 @@ def tensor_leaves(model: nn.Module, prefix: str = ""):
     merges = []  # PatchMerging names: their children's tensors are yielded with them
     m2f = _has_m2f(model)
     bbox = _bbox_geometry(model)
-    rules = _bbox_rules(*bbox) + _RULES if bbox else _RULES
+    twostage = _twostage_rules(model, prefix)
+    rules = (_bbox_rules(*bbox) + _RULES if bbox else twostage + _RULES if twostage
+             else _RULES)
     for mname, module in model.named_modules():
         if any(mname.startswith(m + ".") for m in merges):
             continue
@@ -223,6 +314,10 @@ def tensor_leaves(model: nn.Module, prefix: str = ""):
             merges.append(mname)
             for tname, col, leaf, fn in _merge_leaves(module):
                 yield (dst_prefix + tname, col, [base + leaf], lambda arrs, fn=fn: fn(arrs[0]))
+            continue
+        if isinstance(module, (nn.LSTM, nn.GRUCell)):
+            for tname, col, paths, fn in _recurrent_leaves(module, base):
+                yield dst_prefix + tname, col, paths, fn
             continue
         if isinstance(module, MultiheadAttention):
             for tname, leaf, fn in (("in_proj_weight", "kernel", T),
@@ -269,8 +364,8 @@ def load_jax_variables(model: nn.Module, variables: dict, prefix: str = "") -> n
     full model's tree.
     """
     arrays = port_arrays(
-        model, {col: variables.get(col, {}) for col in ("params", "constants")}, prefix
-    )
+        model, {col: variables.get(col, {}) for col in ("params", "constants", "batch_stats")},
+        prefix)
     state = model.state_dict(keep_vars=True)
     missing = set(state) - set(arrays)
     if missing:

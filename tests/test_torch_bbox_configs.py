@@ -5,7 +5,7 @@ variables (shapes from ``jax.eval_shape`` of JAX's init, nothing compiled);
 ``convert_crosshead_bbox_checkpoint`` taking the port's ``state_dict()`` of
 the R-50, R-101 and ResNeXt-101 models with no key missing or left over; a
 tiny ResNeXt against JAX's; the dispatch of the box head, and the
-two-stage models still raising with their ROADMAP item."""
+two-stage models building (an unknown model type raising)."""
 
 import glob
 import os
@@ -145,8 +145,11 @@ def test_box_head_builds_and_defaults_to_cuda():
 @pytest.mark.parametrize("config", ["imp/panoptic_fpn_r50_sgdet_psg.py",
                                     "motifs/panoptic_fpn_r50_predcls_psg.py"])
 def test_two_stage_models_raise_naming_their_item(config):
+    """The two-stage models, which raised naming ROADMAP A.2-A.3 until they
+    were ported, build and dispatch their loss; an unknown model type
+    still raises naming ROADMAP queue A."""
     cfg = load_config(os.path.join(REPO, "configs", config))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*A\.2-A\.3"):
-        build_model(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.2-A\.3"):
-        get_loss_fn(cfg.model.relation_head.type, cfg)
+    assert type(build_model(cfg.model, device="cpu")).__name__ == "SceneGraphTwoStage"
+    assert get_loss_fn(cfg.model.relation_head.type, cfg).num_points == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        build_model(cfg.model.merge({"type": "SceneGraphRCNN"}), device="cpu")

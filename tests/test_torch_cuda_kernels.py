@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the GPU.
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip without them.
+The NMS kernel (``csrc/nms.cu``) is held here against the plain sweep; the
+plain sweep itself against JAX's in ``test_torch_twostage_ops.py``.
 On a GPU machine: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 """
 
@@ -49,6 +51,7 @@ from pairnet_torch.ops.hungarian import (  # noqa: E402
     batched_hungarian_plain,
     solve_n_le_m_cuda,
 )
+from pairnet_torch.ops import nms  # noqa: E402
 from pairnet_torch.ops.masked_attn import (  # noqa: E402
     chunk_keys,
     masked_flash_attention,
@@ -528,3 +531,56 @@ def test_hungarian_kernel_calls_in_a_row_on_one_stream():
         want = batched_hungarian_plain(torch.tensor(cost), torch.tensor(rm), torch.tensor(cm))
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def nms_boxes(seed, B, n, spread=800.0, ties=True):
+    """(B, n, 4) boxes, scores and valid for the NMS kernel: anchors-like
+    boxes with planted score ties, pairs at IoU exactly 0.5 and 0.7 (exact
+    in f32) and a tenth invalid."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, spread, (B, n, 2))
+    wh = rng.uniform(8, spread / 4, (B, n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    for i in range(0, n - 2, 9):  # a 10 x 10 box, its 10 x 5 half (0.5), its 10 x 7 (0.7)
+        x, y = np.floor(xy[:, i]).T.astype(np.float32)
+        boxes[:, i] = np.stack([x, y, x + 10, y + 10], -1)
+        boxes[:, i + 1] = np.stack([x, y, x + 10, y + 5], -1)
+        boxes[:, i + 2] = np.stack([x, y, x + 10, y + 7], -1)
+    scores = rng.random((B, n)).astype(np.float32)
+    if ties:
+        scores[:, 2::3] = scores[:, 1::3][:, : scores[:, 2::3].shape[1]]
+    valid = rng.random((B, n)) > 0.1
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("B, n, thr", [(2, 4819, 0.7), (2, 256, 0.5), (3, 1, 0.5),
+                                       (1, 1000, 0.7), (1, 12288, 0.5)],
+                         ids=["rpn", "detections", "one_box", "thr_0.7_ties", "largest"])
+def test_nms_kernel_matches_plain(B, n, thr):
+    """``csrc/nms.cu`` against the plain sweep: equal keep masks at the RPN's
+    and the detections' geometries, ties, IoU exactly at the threshold,
+    invalid entries, the largest N the kernel holds."""
+    boxes, scores, valid = _on_card(*nms_boxes(n, B, n))
+    launches = nms.nms_sorted.launches
+    got = nms.nms(boxes, scores, thr, valid)
+    torch.cuda.synchronize()
+    assert nms.nms_sorted.launches == launches + 1
+    want = nms.nms(boxes.cpu(), scores.cpu(), thr, valid.cpu())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_nms_kernel_class_offset_and_limit():
+    """The detections' class-offset NMS on the card equals the plain one;
+    more boxes than the kernel holds raise and launch nothing."""
+    boxes, scores, valid = nms_boxes(1, 2, 256)
+    labels = np.random.default_rng(2).integers(0, 80, (2, 256)).astype(np.int32)
+    args = _on_card(boxes, scores, labels, valid)
+    got = nms.batched_nms(args[0], args[1], args[2], 0.5, args[3])
+    want = nms.batched_nms(*(torch.tensor(a) for a in (boxes, scores, labels)), 0.5,
+                           torch.tensor(valid))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    big, = _on_card(np.zeros((1, 12289, 4), np.float32))
+    launches = nms.nms_sorted.launches
+    with pytest.raises(ValueError, match="holds at most 12288"):
+        nms.nms_sorted(big, torch.ones((1, 12289), dtype=torch.bool, device="cuda"), 0.5)
+    assert nms.nms_sorted.launches == launches

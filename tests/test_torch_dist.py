@@ -327,6 +327,36 @@ def sharded_cli_scoring(rank, world, cli_args, results_out):
             "PQ": test_cli.main(cli_args + ["--eval", "PQ"])}
 
 
+def twostage_cli_scoring(rank, world, cli_args):
+    """The scoring CLI's two-stage branch on this rank's shard: predcls on
+    the device engine, sgcls on the numpy oracle; each run's metrics and
+    the number of images this rank's model scored."""
+    from pairnet_torch.tools import test as test_cli
+
+    orig = test_cli.make_twostage_apply_fn
+    seen = [0]
+
+    def counting(*a, **k):
+        apply_fn = orig(*a, **k)
+
+        def counted(batch):
+            seen[0] += int(np.asarray(batch["batch_valid"]).sum())
+            return apply_fn(batch)
+
+        return counted
+
+    test_cli.make_twostage_apply_fn = counting
+    out = {}
+    try:
+        for mode, engine in (("predcls", "device"), ("sgcls", "numpy")):
+            seen[0] = 0
+            metrics = test_cli.main(cli_args + ["--eval", mode, "--eval-engine", engine])
+            out[f"{mode}-{engine}"] = (metrics, seen[0])
+    finally:
+        test_cli.make_twostage_apply_fn = orig
+    return out
+
+
 def _batch_rows(tree, rows):
     """Rows ``rows`` of every array of a nested dict / list, as tensors."""
     if isinstance(tree, dict):

@@ -218,9 +218,10 @@ def test_build_model_equals_flagship(config, tiny):
 
 
 @pytest.mark.parametrize("change, error, match", [
-    ({"type": "SceneGraphTwoStage"}, NotImplementedError, "model type.*ROADMAP"),
+    # the two-stage models build from a relation_head (not from this bbox_head)
+    ({"type": "SceneGraphTwoStage"}, ValueError, "SceneGraphTwoStage config needs a relation_head"),
     ({"backbone": {"type": "RegNet"}}, NotImplementedError, "backbone.*ROADMAP"),
-    ({"bbox_head": {"type": "MotifHead"}}, NotImplementedError, r"head.*ROADMAP.*A\.2-A\.3"),
+    ({"bbox_head": {"type": "MotifHead"}}, ValueError, "MotifHead is a two-stage relation head"),
     # every matrix learner of the JAX package is ported: only an unknown one raises
     ({"bbox_head": {"mapper": "conv_huge"}}, KeyError, "unknown matrix learner"),
 ], ids=["change0-model type", "change1-backbone", "change2-head", "change3-mapper"])

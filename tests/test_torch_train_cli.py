@@ -129,8 +129,8 @@ def test_profiler_knob_writes_a_trace(tmp_path, monkeypatch):
 
 def test_loss_dispatch():
     """PairNetHead's loss takes the config's loss options (``num_points``
-    is the sampling's); the one-stage zoo and the box head dispatch too; the
-    two-stage heads raise, naming ROADMAP A.2-A.3."""
+    is the sampling's); the one-stage zoo, the box head and the two-stage
+    heads dispatch too (VCTree adds its tree loss); an unknown head raises."""
     cfg = load_config(TINY)
     fn = get_loss_fn("PairNetHead", cfg)
     assert fn.num_points == 256 and fn.keywords == {"with_seg_losses": True}
@@ -139,9 +139,11 @@ def test_loss_dispatch():
     assert get_loss_fn("BaselineHead", {"loss": {"use_seesaw": True}}).cum_size(56) == 57
     assert get_loss_fn("CrossHeadBBox", {}).num_points == 0
     assert get_loss_fn("CrossHeadBBox", {"loss": {"detection_only": True}}).cum_size(50) == 50
-    for head in ("IMPHead", "MotifHead"):
-        with pytest.raises(NotImplementedError, match=r"A\.2-A\.3"):
-            get_loss_fn(head, cfg)
+    for head in ("IMPHead", "MotifHead", "GPSHead", "VCTreeHead"):
+        fn = get_loss_fn(head, cfg)
+        assert fn.num_points == 0 and fn.cum_size(56) == 56
+    with pytest.raises(NotImplementedError, match="head type 'NoSuchHead'"):
+        get_loss_fn("NoSuchHead", cfg)
 
 
 @pytest.fixture(scope="module")
