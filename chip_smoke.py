@@ -219,13 +219,29 @@ random weights:
      configs (f32, batch 2) over phase 24's 4 train images, one epoch of 2
      steps, then ``--resume`` for a second: finite losses, a head
      parameter moved, every BatchNorm statistic unchanged; s per step.
+Phase 33 drives the checkpoint bridge's reference leg:
+ 33. two checkpoints in mmcv's layout (``{"meta", "state_dict",
+     "optimizer"}``) of the flagship ``pairnet_r50_psg.py`` at full width
+     (seeded R-50): the port's ``state_dict()`` with ``num_batches_tracked``
+     on every BatchNorm, and a Mask2Former one (the segmenter's keys only,
+     under ``panoptic_head``). ``pairnet_torch.tools.train.main
+     --load-from`` each for one epoch over phase 9's train images (f32,
+     batch 2, 4 steps; the CLI's unit is the epoch): before the first step
+     every tensor the file names equals the file's and every other one its
+     seeded init (for Mask2Former: PPN and Relation Fusion); 6 + 6 MSDA and
+     2 Hungarian launches a step, no plain call, finite losses. Then
+     ``pairnet_torch.tools.test.main`` scores each work dir (bf16 sgdet,
+     int4): phase 9's key set, finite values. Logged: each file's load
+     time and s per step. The JAX orbax leg (``tools/export_orbax.py``,
+     then ``pairnet_torch.tools.import_jax``) needs orbax, which the card's
+     machine lacks: the CPU tests hold it.
 Then one JSON line of kernels (with this path's entries, ``<name>@bbox``,
 ``hungarian_long@od`` and ``nms``), one of serving, one of training, one
 of evaluation, one of the train CLI, one of Swin-B and the other heads
 (``swin``), one of phases 19-21 (``parallel``), one of phases 22-24
 (``zoo``), one of phases 25-28 (``bbox``), one of phases 29-32
-(``twostage``), the card's name and power limit, and the final line
-{"ok": true, "device": {...}}.
+(``twostage``), one of phase 33 (``bridge``), the card's name and power
+limit, and the final line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2334,6 +2350,123 @@ def twostage_phases(smi, record):
             "scoring": scoring, "training": training}, entries
 
 
+# phase 33: the segmenter of a Mask2Former checkpoint, in the port's Pair-Net names
+M2F_SEGMENTER = ("backbone.", "bbox_head.pixel_decoder.", "bbox_head.transformer_decoder.",
+                 "bbox_head.query_feat.", "bbox_head.query_embed.", "bbox_head.level_embed.",
+                 "bbox_head.cls_embed.", "bbox_head.mask_embed.")
+BRIDGE_SEED = 33  # the checkpoints' weights (the train CLI builds its model from the config's)
+
+
+def bridge_phase(smi, score, launches, reset_launches, count_plain_calls, int4_expect):
+    """Phase 33 (see the module doc): reference ``.pth`` warm starts through
+    the train CLI's ``--load-from``, then the test CLI on the work dir.
+    ``score`` and the launch helpers are main's. Returns the ``bridge``
+    JSON entry: the phase's seconds and each file's run.
+
+    The JAX half of the checkpoint bridge (``tools/export_orbax.py``) needs
+    orbax, which the card's machine does not have: the orbax -> export ->
+    ``pairnet_torch.tools.import_jax`` leg is held by the CPU tests
+    (``tests/test_torch_ckpt_bridge.py``), not here."""
+    import shutil
+
+    from pairnet_torch.config import load_config
+    from pairnet_torch.models.frameworks.psgtr import build_model
+    from pairnet_torch.models.layers import FrozenBatchNorm
+    from pairnet_torch.tools import train as train_cli
+    from pairnet_torch.utils import from_jax
+
+    t_phase = time.perf_counter()
+    src = build_model(load_config(SCORE_CONFIG).model, device=torch.device(DEVICE),
+                      seed=BRIDGE_SEED)
+    sd = {k: v.detach().cpu() for k, v in src.state_dict().items()}
+    # what mmdet's BatchNorm holds and the port's frozen BatchNorm does not
+    sd.update({f"{n}.num_batches_tracked": torch.tensor(BRIDGE_SEED) for n, m in
+               src.named_modules() if isinstance(m, FrozenBatchNorm)})
+    del src
+    files = {"reference": sd,
+             "mask2former": {k.replace("bbox_head.", "panoptic_head.", 1): v for k, v in sd.items()
+                             if k.startswith(M2F_SEGMENTER)}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bridge_")
+    orig_load = from_jax.load_pretrained
+    runs = {}
+    try:
+        for name, state_dict in files.items():
+            path = os.path.join(tmp, f"{name}.pth")
+            torch.save({"meta": {"mmdet_version": "2.25.3", "epoch": 12},
+                        "state_dict": state_dict,
+                        "optimizer": {"state": {}, "param_groups": [{"lr": 1e-4, "params": []}]}},
+                       path)
+            loaded = {}
+
+            def checked_load(model, load_from, _name=name, _sd=state_dict, _out=loaded):
+                """The CLI's load, timed; then every tensor the file names
+                equals the file's and every other one its seeded init."""
+                init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                orig_load(model, load_from)
+                torch.cuda.synchronize()
+                _out["load_s"] = time.perf_counter() - t0
+                state = model.state_dict()
+                named = {k.replace("panoptic_head.", "bbox_head.", 1): v for k, v in _sd.items()
+                         if not k.endswith(".num_batches_tracked")}
+                bad = [k for k, v in named.items() if not torch.equal(state[k].cpu(), v)]
+                rest = sorted(set(state) - set(named))
+                kept = [k for k in rest if torch.equal(state[k], init[k])]
+                check(not bad, f"{_name}: {len(bad)} loaded tensors differ from the file's")
+                check(len(kept) == len(rest), f"{_name}: {len(rest) - len(kept)} tensors the "
+                                              "file lacks moved from their init")
+                if _name == "mask2former":  # PPN and Relation Fusion, at their seeded init
+                    check(rest and not any(k.startswith(M2F_SEGMENTER) for k in rest)
+                          and any(k.startswith("bbox_head.relation_decoder.") for k in rest)
+                          and any(k.startswith("bbox_head.update_importance.") for k in rest),
+                          f"mask2former: tensors left at init {rest[:8]}")
+                else:
+                    check(not rest, f"{_name}: tensors the file lacks {rest[:8]}")
+                _out.update(loaded=len(named), kept_init=len(rest),
+                            skipped=len(_sd) - len(named))
+                return model
+
+            work = os.path.join(tmp, f"work_{name}")
+            from_jax.load_pretrained = checked_load
+            torch.cuda.synchronize()
+            reset_launches()
+            count_plain_calls(True)
+            try:
+                summary = train_cli.main([SCORE_CONFIG, "--work-dir", work, "--device", DEVICE,
+                                          "--load-from", path, "--max-epochs", "1",
+                                          "--cfg-options", *SCORE_SPLIT])
+            finally:
+                count_plain_calls(False)
+                from_jax.load_pretrained = orig_load
+            torch.cuda.synchronize()
+            got, steps = launches(), summary["steps"]
+            want = {"deform_attn_exact": 6 * steps, "int4": 0,
+                    "deform_attn_bwd": {"f32": 6 * steps}, "hungarian": 2 * steps, "plain": {}}
+            check(set(loaded) == {"load_s", "loaded", "kept_init", "skipped"},
+                  f"{name}: the train CLI did not load {path}")
+            check(got == want, f"{name} warm start launches {got}, expected {want}")
+            check(all(math.isfinite(v) for v in summary["last"].values()),
+                  f"{name} losses {summary['last']}")
+            metrics, _, per_fwd = score("sgdet", {}, work_dir=work)
+            check(per_fwd == int4_expect, f"scoring the {name} warm start: {per_fwd}")
+            runs[name] = {**loaded, "file_mib": os.path.getsize(path) / 2 ** 20,
+                          "steps": steps, "s_per_step": summary["seconds"] / steps,
+                          "losses": summary["last"], "sgdet": metrics}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"[33] {smi}, {seconds:.1f} s: --load-from a reference .pth (mmcv layout, num_batches_tracked skipped) "
+        f"and a Mask2Former one (panoptic_head, segmenter only; PPN and Relation Fusion at "
+        f"init), {os.path.relpath(SCORE_CONFIG)} at full width: "
+        + "; ".join(f"{n} {r['file_mib']:.1f} MiB loaded in {r['load_s']:.3f} s ({r['loaded']} "
+                    f"tensors, {r['kept_init']} at init, {r['skipped']} skipped), "
+                    f"{r['steps']} f32 steps of batch 2 at {r['s_per_step']:.3f} s"
+                    for n, r in runs.items())
+        + "; sgdet (bf16 int4) of each work dir: phase 9's key set, finite")
+    return {"seconds": seconds, "runs": runs}
+
+
 def main():
     # --- (0) the card ---
     if not torch.cuda.is_available():
@@ -3576,6 +3709,7 @@ def main():
     kernels.extend(bbox_kernels)
     twostage, twostage_kernels = twostage_phases(smi, record)
     kernels.extend(twostage_kernels)
+    bridge = bridge_phase(smi, score, launches, reset_launches, count_plain_calls, int4_expect)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serving": {"batch": B, "hw": list(IMG), "dtype": "bf16", "impl": "int4",
@@ -3617,6 +3751,7 @@ def main():
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"bbox": bbox}))
     print(json.dumps({"twostage": twostage}))
+    print(json.dumps({"bridge": bridge}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))

@@ -25,9 +25,12 @@ carries R + 1 Seesaw counts, as JAX's CLI sizes them. A two-stage model
 ``--max-steps`` caps the epochs at ceil(max_steps / steps per epoch), as
 the JAX CLI does. A run starts at epoch 0 unless ``--resume`` continues
 from the newest checkpoint. ``--load-from`` (or the config's ``load_from``)
-warm-starts from an ``.npz`` of "/"-flattened flax variables or a port
-checkpoint ``.pt``; a path that does not exist logs a warning and trains
-from scratch. With ``workflow=['train', 'val']`` each epoch ends with a
+warm-starts from a reference PyTorch checkpoint ``.pth`` (mmdet's layout,
+the Mask2Former segmenter's included), an ``.npz`` of "/"-flattened flax
+variables or of a JAX run (``tools/export_orbax.py``), or a port checkpoint
+``.pt``; a path that does not exist logs a warning and trains from scratch.
+A JAX run is continued, optimizer and all, by ``pairnet_torch.tools.import_jax``
+and then ``--resume``. With ``workflow=['train', 'val']`` each epoch ends with a
 validation-loss pass on the test split.
 
 Environment, read here: ``PAIRNET_DEFORM_IMPL`` picks the MSDA kernels as
@@ -56,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest ckpts/epoch_<n>.pt of the work dir")
     p.add_argument("--load-from",
-                   help="warm-start weights: .npz of flattened flax variables or a port .pt")
+                   help="warm-start weights: a reference .pth, an .npz of flax variables "
+                        "(or a tools/export_orbax.py export) or a port .pt")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--cfg-options", nargs="+", default=[], help="dotted-path overrides k=v")
     p.add_argument("--device", default=None, help="torch device (default: cuda:LOCAL_RANK)")
@@ -74,6 +78,29 @@ def main(argv=None) -> dict:
         return _main(args, rank, world, device)
 
 
+def build_train_state(cfg, device: torch.device, seed: int, batch_size: int):
+    """``(state, base_lr, head_type)``: the config's model with seeded weights,
+    its AdamW (the lr scaled by ``batch_size`` /
+    ``optimizer.auto_scale_lr_base_batch``, the ``custom_lr_keys`` groups,
+    the weight decay) and a :class:`TrainState` with the head's Seesaw count
+    size, as this CLI trains them."""
+    from pairnet_torch.train.builder import build_detector
+    from pairnet_torch.train.dispatch import get_loss_fn
+    from pairnet_torch.train.optim import build_optimizer
+    from pairnet_torch.train.trainer import TrainState
+
+    head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
+    cum_size = get_loss_fn(head_type, cfg).cum_size(cfg.num_relation_classes)
+    opt_cfg = cfg.optimizer
+    base_lr = opt_cfg.lr
+    if opt_cfg.get("auto_scale_lr_base_batch"):
+        base_lr = base_lr * batch_size / opt_cfg.auto_scale_lr_base_batch
+    model = build_detector(cfg, device=device, seed=seed)
+    optimizer = build_optimizer(model, base_lr, weight_decay=opt_cfg.weight_decay,
+                                custom_lr_keys=dict(opt_cfg.custom_lr_keys))
+    return TrainState(model, optimizer, cum_size, seed=seed), base_lr, head_type
+
+
 def _main(args, rank: int, world: int, device: torch.device) -> dict:
     logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(message)s")
@@ -82,18 +109,14 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
     from pairnet_torch.data.pipeline import Loader
     from pairnet_torch.flagship import set_deform_impl
     from pairnet_torch.tools.test import deform_impl
-    from pairnet_torch.train.builder import build_dataset, build_detector, build_pipeline_cfg
-    from pairnet_torch.train.optim import build_optimizer, step_lr_schedule
-    from pairnet_torch.train.trainer import Trainer, TrainState
+    from pairnet_torch.train.builder import build_dataset, build_pipeline_cfg
+    from pairnet_torch.train.optim import step_lr_schedule
+    from pairnet_torch.train.trainer import Trainer
     from pairnet_torch.utils.from_jax import load_pretrained
 
     cfg = load_config(args.config)
     if args.cfg_options:
         cfg = apply_overrides(cfg, args.cfg_options)
-    head_type = cfg.model["relation_head" if "relation_head" in cfg.model else "bbox_head"].type
-    from pairnet_torch.train.dispatch import get_loss_fn
-
-    cum_size = get_loss_fn(head_type, cfg).cum_size(cfg.num_relation_classes)
     work_dir = args.work_dir or cfg.work_dir
     os.makedirs(work_dir, exist_ok=True)
     if rank == 0:
@@ -119,7 +142,8 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
 
     steps_per_epoch = max(1, len(loader_fn(0)))
 
-    model = set_deform_impl(build_detector(cfg, device=device, seed=seed), impl)
+    state, base_lr, head_type = build_train_state(cfg, device, seed, batch_size)
+    model = set_deform_impl(state.model, impl)
     load_from = args.load_from or cfg.get("load_from")
     if load_from and os.path.exists(load_from):
         load_pretrained(model, load_from)
@@ -131,22 +155,16 @@ def _main(args, rank: int, world: int, device: torch.device) -> dict:
                  "steps/epoch", cfg.model.type, n_params / 1e6, device, world, impl, batch_size,
                  steps_per_epoch)
 
-    opt_cfg = cfg.optimizer
-    base_lr = opt_cfg.lr
-    if opt_cfg.get("auto_scale_lr_base_batch"):
-        base_lr = base_lr * batch_size / opt_cfg.auto_scale_lr_base_batch
     schedule = step_lr_schedule(base_lr, steps_per_epoch, cfg.schedule.decay_epochs,
                                 cfg.schedule.gamma)
-    optimizer = build_optimizer(model, base_lr, weight_decay=opt_cfg.weight_decay,
-                                custom_lr_keys=dict(opt_cfg.custom_lr_keys))
-    state = TrainState(model, optimizer, cum_size, seed=seed)
     compute_dtype = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16}.get(
         cfg.get("compute_dtype") or "")
     trainer = Trainer(state, work_dir, loss_kwargs=dict(cfg.get("loss", {})),
                       log_interval=cfg.get("log_interval", 50),
                       ckpt_interval_epochs=cfg.checkpoint.interval_epochs,
                       max_keep_ckpts=cfg.checkpoint.max_keep, compute_dtype=compute_dtype,
-                      schedule=schedule, grad_clip=opt_cfg.grad_clip, head_type=head_type)
+                      schedule=schedule, grad_clip=cfg.optimizer.grad_clip,
+                      head_type=head_type)
     max_epochs = args.max_epochs or cfg.schedule.max_epochs
     if args.max_steps:
         max_epochs = min(max_epochs, -(-args.max_steps // steps_per_epoch))

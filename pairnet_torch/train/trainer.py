@@ -78,6 +78,8 @@ class TrainState:
     def device(self) -> torch.device:
         return self.cum_samples.device
 
+    KEYS = ("step", "model", "optimizer", "cum_samples", "generator")
+
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(), "cum_samples": self.cum_samples,
@@ -247,6 +249,16 @@ def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def write_checkpoint(path: Path, epoch: int, state: dict) -> Path:
+    """``{"epoch", "state"}`` into ``path`` (``ckpts/epoch_<n>.pt``), through a
+    temporary file, so a reader never sees a partial one."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(".tmp")
+    torch.save({"epoch": epoch, "state": state}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 class Trainer:
     """Epoch runner: train, optional val pass and eval hook, checkpoints
     with keep-rotation, resume. Trains ``state.model`` with
@@ -288,6 +300,12 @@ class Trainer:
             return 0
         epoch, path = ckpts[-1]
         sd = torch.load(path, map_location=self.state.device, weights_only=False)
+        missing = [k for k in TrainState.KEYS if k not in sd["state"]]
+        if missing:
+            raise ValueError(f"cannot resume from {path}: the checkpoint holds no "
+                             f"{', '.join(missing)}: it carries weights only (as the import of a "
+                             "params-only JAX export does), which the test CLI scores and "
+                             "--load-from reads; a resume needs the whole training state")
         self.state.load_state_dict(sd["state"])
         logger.info("resumed from %s", path)
         return epoch
@@ -297,9 +315,7 @@ class Trainer:
         ``max_keep_ckpts``; rank 0 writes, every rank returns after it."""
         path = self.ckpt_dir / f"epoch_{epoch}.pt"
         if self.rank == 0:
-            tmp = path.with_suffix(".tmp")
-            torch.save({"epoch": epoch, "state": self.state.state_dict()}, tmp)
-            os.replace(tmp, path)
+            write_checkpoint(path, epoch, self.state.state_dict())
             for _, old in self.checkpoints()[: -self.max_keep_ckpts]:
                 old.unlink()
         if is_distributed():

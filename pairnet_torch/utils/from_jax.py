@@ -30,7 +30,9 @@ another shape raises, a tensor with no leaf keeps its init.
 
 from __future__ import annotations
 
+import os
 import re
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -423,29 +425,53 @@ def merge_pretrained(model: nn.Module, pretrained: dict) -> nn.Module:
     return model
 
 
+EXPORT_STEP = "__step__"  # the orbax step that ``tools/export_orbax.py`` stores
+
+
+def read_jax_export(path: str) -> tuple[dict, int | None]:
+    """An ``.npz`` of ``"/"``-flattened leaves as a nested tree, and the
+    orbax step (JAX's epoch) that ``tools/export_orbax.py`` stored in it;
+    None for an ``.npz`` of flax variables, which has none."""
+    with np.load(path) as f:
+        flat = dict(f)
+    step = flat.pop(EXPORT_STEP, None)
+    return unflatten(flat), None if step is None else int(step)
+
+
 def load_pretrained(model: nn.Module, path: str) -> nn.Module:
-    """Warm-start ``model`` in place from ``path``: an ``.npz`` of
-    ``"/"``-flattened flax variables (:func:`merge_pretrained`), or a port
-    checkpoint ``ckpts/epoch_<n>.pt`` whose model state is overlaid with the
-    same rules (unknown key or shape mismatch raises, a missing key keeps
-    its init)."""
+    """Warm-start ``model`` in place from ``path``, by what it is:
+
+    * a reference PyTorch checkpoint ``.pth``
+      (:func:`pairnet_torch.utils.torch_convert.load_reference_checkpoint`,
+      the Mask2Former segmenter's included);
+    * an ``.npz`` of ``"/"``-flattened flax variables, or an export of a
+      JAX orbax checkpoint (``tools/export_orbax.py``), whose ``params``
+      subtree (the variables) is taken as JAX's ``tools/train.py`` takes
+      ``raw["params"]`` (:func:`merge_pretrained`);
+    * a port checkpoint ``ckpts/epoch_<n>.pt``, whose model state is
+      overlaid.
+
+    Every route overlays: an unknown key or a shape mismatch raises, a
+    tensor the file lacks keeps its init. A directory (a JAX orbax
+    checkpoint, which the port cannot read) raises ``ValueError``."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"load_from {path!r} is a directory: a JAX orbax checkpoint, which the port does "
+            f"not read. Export it where JAX is installed, `python tools/export_orbax.py {path} "
+            "--out weights.npz`, and load the .npz")
     if path.endswith(".npz"):
-        with np.load(path) as f:
-            return merge_pretrained(model, unflatten(dict(f)))
-    if not path.endswith(".pt"):
-        raise ValueError(f"load_from {path!r}: expected an .npz of flax variables or a port "
-                         "checkpoint .pt")
-    sd = torch.load(path, map_location="cpu", weights_only=True)["state"]["model"]
-    state = model.state_dict(keep_vars=True)
-    unknown = sorted(set(sd) - set(state))
-    if unknown:
-        raise KeyError(f"unexpected checkpoint keys: {unknown}")
-    with torch.no_grad():
-        for name, val in sd.items():
-            if state[name].shape != val.shape:
-                raise ValueError(f"shape mismatch at {name}: {tuple(state[name].shape)} vs "
-                                 f"{tuple(val.shape)}")
-            state[name].copy_(val)
+        tree, step = read_jax_export(path)
+        return merge_pretrained(model, tree if step is None else tree["params"])
+    from pairnet_torch.utils.torch_convert import load_reference_checkpoint
+
+    if path.endswith(".pth"):
+        load_reference_checkpoint(model, path)
+    elif path.endswith(".pt"):
+        load_reference_checkpoint(
+            model, torch.load(path, map_location="cpu", weights_only=True)["state"]["model"])
+    else:
+        raise ValueError(f"load_from {path!r}: expected an .npz of flax variables, a port "
+                         "checkpoint .pt or a reference checkpoint .pth")
     return model
 
 
@@ -456,41 +482,60 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
+def _field(obj, name):
+    """``obj[name]`` of a restored tree, or the attribute of a ``TrainState``."""
+    return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
+
+
 def _adam_state(opt_state):
-    """The optax ``ScaleByAdamState`` (count, mu, nu) inside a chained
-    optimizer state."""
-    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
-        return opt_state
-    if isinstance(opt_state, (tuple, list)):
-        for s in opt_state:
-            found = _adam_state(s)
-            if found is not None:
-                return found
+    """``(count, mu, nu)`` of the Adam moments inside a chained optax state:
+    a ``ScaleByAdamState``, or the ``{count, mu, nu}`` dict that a
+    target-free orbax restore (lists for tuples, None for empty states) or
+    its export (dicts with digit keys) holds; None if there is none."""
+    if isinstance(opt_state, Mapping):
+        if "mu" in opt_state and "nu" in opt_state:
+            return opt_state["count"], opt_state["mu"], opt_state["nu"]
+        children = [opt_state[k] for k in sorted(opt_state, key=lambda k: (len(k), k))]
+    elif hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    elif isinstance(opt_state, (tuple, list)):
+        children = opt_state
+    else:
+        return None
+    for s in children:
+        found = _adam_state(s)
+        if found is not None:
+            return found
     return None
 
 
 def load_jax_train_state(state, jax_state) -> None:
-    """Carry a JAX ``TrainState`` (``pairnet_tpu.train.trainer``) into the
-    port's :class:`pairnet_torch.train.trainer.TrainState` in place: the
-    params and constants, the AdamW moments ``mu``/``nu`` and ``count``
-    (as every parameter's Adam ``step``), ``step`` and ``cum_samples``.
-    The random streams differ between the packages and are not carried."""
+    """Carry a JAX training state into the port's
+    :class:`pairnet_torch.train.trainer.TrainState` in place: the variables
+    (params, constants, batch_stats), the AdamW moments ``mu``/``nu`` and
+    ``count`` (as every parameter's Adam ``step``), ``step`` and
+    ``cum_samples``. ``jax_state`` is a ``pairnet_tpu.train.trainer.TrainState``
+    or the raw tree of its checkpoint (a target-free orbax restore, or its
+    ``tools/export_orbax.py`` export read back): nested dicts and lists
+    whose ``params`` is the whole variables dict. The random streams differ
+    between the packages and are not carried."""
     model, opt = state.model, state.optimizer
-    load_jax_variables(model, _numpy_tree(jax_state.params))
-    adam = _adam_state(jax_state.opt_state)
+    load_jax_variables(model, _numpy_tree(_field(jax_state, "params")))
+    adam = _adam_state(_field(jax_state, "opt_state"))
     if adam is None:
         raise ValueError("the JAX optimizer state holds no Adam moments")
-    mu = port_arrays(model, {"params": _numpy_tree(adam.mu)})
-    nu = port_arrays(model, {"params": _numpy_tree(adam.nu)})
-    count = int(np.asarray(adam.count))
-    params = dict(model.named_parameters())
-    for name, p in params.items():
+    count, mu, nu = adam
+    mu = port_arrays(model, {"params": _numpy_tree(mu)})
+    nu = port_arrays(model, {"params": _numpy_tree(nu)})
+    count = int(np.asarray(count))
+    for name, p in model.named_parameters():
         opt.state[p] = {
             "step": torch.tensor(float(count)),
             "exp_avg": torch.tensor(mu[name], device=p.device, dtype=p.dtype),
             "exp_avg_sq": torch.tensor(nu[name], device=p.device, dtype=p.dtype),
         }
-    state.step = int(np.asarray(jax_state.step))
-    state.cum_samples = torch.from_numpy(np.array(jax_state.cum_samples, np.float32)).to(
-        state.cum_samples.device
-    )
+    state.step = int(np.asarray(_field(jax_state, "step")))
+    cum = np.array(_field(jax_state, "cum_samples"), np.float32)
+    if cum.shape != tuple(state.cum_samples.shape):
+        raise ValueError(f"cum_samples: JAX {cum.shape} vs port {tuple(state.cum_samples.shape)}")
+    state.cum_samples = torch.from_numpy(cum).to(state.cum_samples.device)
