@@ -181,7 +181,8 @@ published configs at full width with seeded random weights:
      encoder matcher, 64 GT boxes against the 22323 proposals, through the
      long instance), no solver sync, no plain call; then the long
      instance on that step's own costs, equal to the plain loop's, with
-     its ms, search steps and ns a step; and each config's f32 step on a
+     its ms, search steps, ns a step and cluster size (CTAs a problem);
+     and each config's f32 step on a
      seeded batch of 2 split into forward, targets, loss, backward and
      optimizer (CUDA events), with the card's busy share (profiler).
 Phases 29-32 drive the two-stage family (``SceneGraphTwoStage`` with the
@@ -194,7 +195,10 @@ random weights:
      the scores tied and pairs planted at IoU exactly 0.5 and 0.7; IoUs
      within 1e-6 of a threshold (off it) counted and refused. Then, after
      phase 30, the kernel on that phase's own RPN and detection calls: ms
-     as issued and spun, the plain sweep's ms, the barriers, and the bound:
+     as the sum of its two kernels' times (the mask kernel and the sweep
+     each launched alone behind a spin, each logged), as issued and spun, the plain
+     sweep's ms, the sweep's barriers (one a 64-box block) beside the kept
+     boxes, and the bound:
      the larger of the bytes (boxes and valid read, keep written) and the
      operations of the IoUs this run's sweep computes (each kept box
      against the later boxes still in play) at the f32 rate.
@@ -1611,6 +1615,7 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
     from pairnet_torch.ops.hungarian import (
         SHORT_COLS,
         batched_hungarian,
+        long_cluster,
         solve_n_le_m_cuda,
         solve_n_le_m_plain,
     )
@@ -1874,6 +1879,7 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
                 os.environ[k] = v
     check(len(long_costs) == 1, "the detection-only step gave the long instance no problem")
     cost = long_costs[0]
+    keep_loop_input("hungarian_long", cost)
     B_, n_, m_ = cost.shape
     got_r2c, steps_t = solve_n_le_m_cuda(cost)
     want_r2c = solve_n_le_m_plain(cost)
@@ -1885,7 +1891,9 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
         "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 10, spin=True),
         "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(cost), 1),
         "bound_ms": (cost.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3,
-        "search_steps": int(steps_t.sum()), "search_steps_max": int(steps_t.max())}
+        "search_steps": int(steps_t.sum()), "search_steps_max": int(steps_t.max()),
+        "cluster_ctas": long_cluster(m_)}
+    check(hung_long["cluster_ctas"] >= 2, f"long Hungarian cluster {hung_long['cluster_ctas']}")
     hung_long["ns_per_step"] = hung_long["device_ms"] * 1e6 / max(hung_long["search_steps_max"], 1)
 
     # where a step's time goes: each config's f32 step (exact MSDA) on
@@ -1932,7 +1940,8 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
         + f"; no solver sync; the long Hungarian on the detection-only step's encoder costs "
         f"({B_}x{n_}x{m_}): equal to the plain loop's, {hung_long['ms']:.4f} ms (spun "
         f"{hung_long['device_ms']:.4f}), {hung_long['search_steps_max']} search steps "
-        f"({hung_long['ns_per_step']:.0f} ns a step), plain loop {hung_long['plain_ms']:.1f} "
+        f"({hung_long['ns_per_step']:.0f} ns a step, clusters of "
+        f"{hung_long['cluster_ctas']} CTAs), plain loop {hung_long['plain_ms']:.1f} "
         f"ms, bound {hung_long['bound_ms']:.5f} ms; the f32 step on a seeded batch of 2: "
         + ", ".join(f"{p} {v['ms_per_step']:.1f} ms (phases "
                     f"{ {k: round(x, 2) for k, x in v['phase_ms'].items()} }, busy "
@@ -1968,7 +1977,7 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
         "launches": od_train["hungarian_long"], "bound_by": "bytes", "library_ms": None,
         **{f: hung_long[f] for f in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                      "solved_as", "search_steps", "search_steps_max",
-                                     "ns_per_step")}})
+                                     "ns_per_step", "cluster_ctas")}})
     return {"kernels_at_geometry": geo, "serving": served,
             "f32_exact_vs_plain": {"max_abs_err": fwd_err, "decided_ranks": decided,
                                    "picks_replayed": flips},
@@ -2070,12 +2079,44 @@ def nms_flops(boxes, valid, keep, thr):
     return IOU_OPS * nms_swept(boxes, valid, keep, thr) + AREA_OPS * int(valid.sum())
 
 
+def keep_loop_input(name, value):
+    """With ``CHIP_SMOKE_LOOP_INPUTS=FILE``, add a loop kernel's main-path
+    inputs to that file (``torch.save``), for
+    ``pairnet_torch/tools/loop_kernels.py --inputs FILE``."""
+    path = os.environ.get("CHIP_SMOKE_LOOP_INPUTS")
+    if path:
+        saved = torch.load(path, weights_only=False) if os.path.exists(path) else {}
+        saved[name] = value
+        torch.save(saved, path)
+
+
+def nms_split(entry, keep, boxes, valid, thr):
+    """The NMS call's two kernels timed apart (CUDA events around each
+    launched alone, behind a spin; their sum becomes the entry's ``ms``,
+    the whole call's time as issued stays as ``issued_ms``), and the
+    sweep's barriers: one a 64-box block, beside the boxes kept."""
+    from pairnet_torch.ops.nms import nms_sorted_parts
+    from pairnet_torch.tools.msda_kernels import cuda_ms
+
+    mask, sweep, parts_keep = nms_sorted_parts(boxes, valid, thr)
+    mask()
+    sweep()
+    torch.cuda.synchronize()
+    check(torch.equal(parts_keep, keep), "nms: the two launches apart keep other boxes")
+    mask_ms, sweep_ms = cuda_ms(torch, mask, 10, spin=True), cuda_ms(torch, sweep, 10, spin=True)
+    entry.update(issued_ms=entry["ms"], mask_ms=mask_ms, sweep_ms=sweep_ms, ms=mask_ms + sweep_ms,
+                 kept_per_image=keep.sum(1).tolist(), barriers_per_image=-(-keep.shape[1] // 64))
+    log(f"[29] {entry['name']}: mask kernel {mask_ms:.4f} ms + sweep {sweep_ms:.4f} ms = "
+        f"{entry['ms']:.4f} ms (the call as issued {entry['issued_ms']:.4f}); kept "
+        f"{entry['kept_per_image']} boxes, {entry['barriers_per_image']} sweep barriers an image")
+
+
 def twostage_phases(smi, record):
     """Phases 29-32 (see the module doc): the NMS kernel, and the two-stage
     family (the Panoptic FPN detector, MOTIFS / IMP / GPS-Net / VCTree)
     served, scored and trained at full width. ``record`` is main's
-    kernel-vs-plain check and timing. Returns (the ``twostage`` JSON entry,
-    the kernel entries of this path)."""
+    kernel-vs-plain check and timing; it adds the NMS kernel's entry to the
+    ``kernels`` line. Returns the ``twostage`` JSON entry."""
     import shutil
 
     from pairnet_torch.config import apply_overrides, load_config
@@ -2250,8 +2291,9 @@ def twostage_phases(smi, record):
                     for h, r in serving.items() for d, v in r.items()))
 
     # the kernel on the main path's inputs: the RPN's call (and the detections')
-    entries = []
     rpn_boxes, rpn_valid, rpn_thr = captured[max(captured)]
+    keep_loop_input("nms_rpn", captured[max(captured)])
+    keep_loop_input("nms_det", captured[min(captured)])
     keep = nms_mod.nms_sorted_cuda(rpn_boxes, rpn_valid, rpn_thr)
     _, entry = record("nms", nms_expect, lambda: nms_mod.nms_sorted_cuda(rpn_boxes, rpn_valid,
                                                                           rpn_thr),
@@ -2262,10 +2304,8 @@ def twostage_phases(smi, record):
                       phase=29, source="pairnet_torch/csrc/nms.cu",
                       replaces="pairnet_tpu/ops/nms.py:17 (nms: a lax.fori_loop, not a "
                                "pl.pallas_call site)")
-    entry["sequential_steps"] = rpn_boxes.shape[1]
-    entry["barriers_per_image"] = keep.sum(1).tolist()
+    nms_split(entry, keep, rpn_boxes, rpn_valid, rpn_thr)
     entry["ious_swept"] = nms_swept(rpn_boxes, rpn_valid, keep, rpn_thr)
-    entries.append(entry)
     det_boxes, det_valid, det_thr = captured[min(captured)]
     keep_d = nms_mod.nms_sorted_cuda(det_boxes, det_valid, det_thr)
     _, entry_d = record("nms@detections", None,
@@ -2275,11 +2315,11 @@ def twostage_phases(smi, record):
                         nms_flops(det_boxes, det_valid, keep_d, det_thr),
                         f"the detections' class-offset call, N {det_boxes.shape[1]}",
                         phase=29)
-    nms_entry = {"rpn": {k: entry[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                "bound_by")},
-                 "detections": {k: entry_d[k] for k in ("ms", "device_ms", "plain_ms",
-                                                         "bound_ms", "bound_by")},
-                 "cases": cases}
+    nms_split(entry_d, keep_d, det_boxes, det_valid, det_thr)
+    fields = ("ms", "issued_ms", "device_ms", "mask_ms", "sweep_ms", "plain_ms", "bound_ms",
+              "bound_by", "kept_per_image", "barriers_per_image")
+    nms_entry = {"rpn": {k: entry[k] for k in fields},
+                 "detections": {k: entry_d[k] for k in fields}, "cases": cases}
 
     # --- (31) scoring through the test CLI ---
     scoring = {}
@@ -2347,7 +2387,7 @@ def twostage_phases(smi, record):
                                   f"step, BN statistics unchanged ({t['bn_statistics']})"
                                   for p, t in training.items()))
     return {"nms": nms_entry, "serving": serving, "fusion_graph_nodes": dict(fusion_nodes),
-            "scoring": scoring, "training": training}, entries
+            "scoring": scoring, "training": training}
 
 
 # phase 33: the segmenter of a Mask2Former checkpoint, in the port's Pair-Net names
@@ -3707,8 +3747,7 @@ def main():
                "quantize": compare_quantize, "gather": compare_gather, "bwd": compare_bwd}
     bbox, bbox_kernels = bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls)
     kernels.extend(bbox_kernels)
-    twostage, twostage_kernels = twostage_phases(smi, record)
-    kernels.extend(twostage_kernels)
+    twostage = twostage_phases(smi, record)
     bridge = bridge_phase(smi, score, launches, reset_launches, count_plain_calls, int4_expect)
 
     print(json.dumps({"kernels": kernels}))

@@ -52,26 +52,51 @@
 // A second instance, hungarian_long_kernel, takes 256 < m <= 65536: the
 // detection-only loss matches the encoder's S proposals (22,323 at
 // 800x1344 with 4 levels; 37,485 at 1344x1344) against <= 100 GT boxes,
-// which after the n <= m transpose is a (G, S) problem. The columns no
-// longer fit in a warp's registers, so:
-//   * one CTA of 1024 threads per problem; the costs are read from global
-//     memory (a 64 x 22,323 problem is 5.7 MB, which the 50 MB L2 holds),
-//     the column state (minv, way, v, used, p) lives in a global workspace
-//     the wrapper allocates, the potentials u of the rows too;
-//   * thread t owns columns t, t + 1024, ...; a search step is one pass
-//     over them that also applies the previous step's minv -= delta (the
-//     plain loop's update, in its order: it is the next step's first use),
-//     then a block-wide argmin that keeps the first minimum: each thread's
-//     first least key, the warps' least (key, column) by two
-//     __reduce_min_sync, then warp 0 over the 32 warps the same way;
-//   * u += delta and v -= delta touch only the rows and columns this
-//     search visited, kept in a list (a search visits one of each a step),
-//     so a step costs one pass over m plus O(steps);
-//   * used flags are cleared through the visited list at the end of a
-//     row, minv and way are reset by the first pass of each row.
+// which after the n <= m transpose is a (G, S) problem. A search step is a
+// pass over all m columns, and one SM's path to L2 bounded a pass over
+// state kept in global memory. So a problem runs on one thread-block
+// cluster of K CTAs (16 where the card can place them, else 8, 4, 2):
+//   * CTA r owns the columns [r * cs, (r + 1) * cs), cs = ceil(m / K); their
+//     minv, way, v, p and used flags live in its shared memory (17 bytes a
+//     column: 24 KB at m = 22,323, 70 KB at 65,536 with K = 16), thread t
+//     owns the slice's columns t, t + 256, ... . A step reads only the
+//     slice of cost row i0 (costs stay in global memory, read through L2);
+//   * the pass applies the previous step's minv -= delta (the plain loop's
+//     update, in its order: it is the next step's first use) and the
+//     cur < minv update, with no branch on the used flag so that a
+//     thread's loads go out together; then each warp reduces to its first
+//     least (order_key, column) pair (two __reduce_min_sync), and after a
+//     CTA barrier warp 0 the 8 warps' pairs to the CTA's (column, value,
+//     p, way): its slot in shared memory, double buffered by step parity;
+//   * one cluster barrier (barrier.cluster arrive.release / wait.acquire)
+//     a step. Then warp 0 of every CTA reads the K slots through
+//     distributed shared memory (a lane each), merges them the same way
+//     and hands the winner to its CTA through shared memory and a CTA
+//     barrier, so all CTAs agree on j1 and delta bit for bit; the slot
+//     carries p[j1] (the next row i0 and the loop flag) and way[j1]. (Every
+//     warp reading the slots itself, or each CTA pushing its slot to the
+//     others' shared memory behind an mbarrier, measured slower: PERF.md);
+//   * way is kept as the search step whose j0 improved the column, so one
+//     search's winners (column, delta, p, way), replicated in every CTA's
+//     shared memory (global memory past 2,048 steps), are all that the
+//     augmenting walk and the potentials need: each CTA walks the path
+//     locally and rewrites p of its own columns, and the updates the plain
+//     loop makes every step (u += delta on visited rows, v -= delta on used
+//     columns) are made once at the end of the search, each entry adding
+//     the same deltas in the same order. A row is visited once a search,
+//     so a step reads u[i0] as the search found it;
+//   * a degenerate search (a column whose way was never set, as a whole
+//     NaN row leaves it, or a used column picked at cost 1e18) walks the
+//     plain loop's walk through distributed shared memory, and from then
+//     on a revisited row's u and the end-of-search updates look back
+//     through the winners, so even these searches end as the plain loop's.
+// Each CTA keeps its own copy of u in the workspace the wrapper allocates.
 // The same padding contract and bit-equal results as the plain loop; the
-// same search-step bound and degenerate-row handling as the first instance.
+// same search-step bound (steps <= m) and degenerate-row handling as the
+// first instance; the inversion takes the higher column for a row that two
+// columns claim, as the plain loop's scatter on the CPU does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -212,158 +237,295 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) steps_out[blockIdx.x] = total_steps;
 }
 
-constexpr int kLongMaxCols = 65536;       // the long instance's limit on m
-constexpr int kLongThreads = 1024;
+constexpr int kLongMaxCols = 65536;     // the long instance's limit on m
+constexpr int kLongThreads = 256;
 constexpr int kLongWarps = kLongThreads / 32;
+constexpr int kMaxCluster = 16;         // CTAs a problem, at most (non-portable above 8)
+constexpr int kListCap = 2048;          // search winners held in shared memory
+constexpr int kChunk = 8;               // costs a thread loads before it uses them
+constexpr int kLongMaxSmem = 227 * 1024;
+constexpr int kWayInit = -1;            // way as the plain loop starts it: column 0
+constexpr int kWayUsed = -2;            // published for a used column picked at cost kInf
 
-// Per-problem workspace of the long instance, in 4-byte words: minv (m),
-// way (m), v (m + 1), used (m), p (m + 1), u (n), visited rows and
-// columns (m + 2 each: a search takes at most m + 1 steps), inverse map (n).
+// Per-CTA workspace of the long instance, in 4-byte words: u (n, padded to
+// 16 bytes), then the search winners past kListCap (m + 2 int4 records: a
+// search takes at most m + 1 steps).
+__host__ __device__ inline size_t long_u_words(int n) { return ((size_t)n + 3) & ~(size_t)3; }
+__host__ __device__ inline size_t long_cta_words(int n, int m) {
+  return long_u_words(n) + 4 * ((size_t)m + 2);
+}
 __host__ __device__ inline size_t long_ws_words(int n, int m) {
-  return 7 * (size_t)m + 6 + 2 * (size_t)n;
+  return (size_t)kMaxCluster * long_cta_words(n, m);
+}
+// Dynamic shared memory: the CTA's slot (two step parities), its warps'
+// slots and the step's winner, the search's winners, then minv, way, v, p (4
+// bytes a column each) and used (1 byte a column).
+inline size_t long_smem_bytes(int cs, int lc) {
+  return (size_t)(3 + kLongWarps + lc) * sizeof(int4) + (size_t)cs * (4 * sizeof(float) + 1);
+}
+
+// The least (order_key(value), column) of the warp's slots (column, value
+// bits, p, way), column -1 for none; every lane gets it.
+__device__ __forceinline__ int4 least_slot(int4 s) {
+  const unsigned k = s.x >= 0 ? order_key(__int_as_float(s.y)) : 0xffffffffu;
+  const unsigned c = s.x >= 0 ? (unsigned)s.x : 0xffffffffu;
+  const unsigned lk = __reduce_min_sync(kFull, k);
+  const unsigned lc = __reduce_min_sync(kFull, k == lk ? c : 0xffffffffu);
+  const int src = __ffs(__ballot_sync(kFull, k == lk && c == lc)) - 1;
+  return make_int4(__shfl_sync(kFull, s.x, src), __shfl_sync(kFull, s.y, src),
+                   __shfl_sync(kFull, s.z, src), __shfl_sync(kFull, s.w, src));
+}
+
+// Winner s of the current search: (j1, delta bits, p[j1], way[j1] as a step).
+__device__ __forceinline__ int4 winner(const int4* list, const int4* spill, int lc, int s) {
+  return s < lc ? list[s] : __ldcg(spill + s);
 }
 
 __global__ void __launch_bounds__(kLongThreads)
     hungarian_long_kernel(const float* __restrict__ cost, long long* __restrict__ row2col,
-                          int* __restrict__ steps_out, int n, int m, int* __restrict__ ws_all) {
-  __shared__ unsigned warp_key[kLongWarps];
-  __shared__ int warp_col[kLongWarps];
-  __shared__ float warp_val[kLongWarps];
-  __shared__ int sh_j1, sh_i0, sh_nrows, sh_ncols, sh_go;
-  __shared__ float sh_delta, sh_ui0;
+                          int* __restrict__ steps_out, int n, int m, int K, int cs, int lc,
+                          int* ws_all) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* slots = reinterpret_cast<int4*>(smem);  // the CTA's least, by step parity
+  int4* warp_best = slots + 2;                   // each warp's least
+  int4* won = warp_best + kLongWarps;            // the step's winner
+  int4* list = won + 1;
+  float* minv = reinterpret_cast<float*>(list + lc);
+  int* way = reinterpret_cast<int*>(minv + cs);
+  float* v = reinterpret_cast<float*>(way + cs);
+  int* p = reinterpret_cast<int*>(v + cs);
+  unsigned char* used = reinterpret_cast<unsigned char*>(p + cs);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* C = cost + (size_t)blockIdx.x * n * m;
-  int* ws = ws_all + (size_t)blockIdx.x * long_ws_words(n, m);
-  float* minv = reinterpret_cast<float*>(ws);
-  int* way = ws + m;
-  float* v = reinterpret_cast<float*>(ws + 2 * (size_t)m);
-  int* used = ws + 3 * (size_t)m + 1;
-  int* p = ws + 4 * (size_t)m + 1;
-  float* u = reinterpret_cast<float*>(ws + 5 * (size_t)m + 2);
-  int* vrows = ws + 5 * (size_t)m + 2 + n;
-  int* vcols = vrows + m + 2;
-  int* inv = vcols + m + 2;
+  const int rank = (int)cluster.block_rank();
+  const int prob = blockIdx.x / K;
+  const int base = rank * cs;
+  const int cnt = max(0, min(cs, m - base));
+  const float* C = cost + (size_t)prob * n * m + base;  // this CTA's slice of row 0
+  int* ws = ws_all + ((size_t)prob * kMaxCluster + rank) * long_cta_words(n, m);
+  float* u = reinterpret_cast<float*>(ws);
+  int4* spill = reinterpret_cast<int4*>(ws + long_u_words(n));
+  long long* out = row2col + (size_t)prob * n;
 
-  for (int j = tid; j <= m; j += kLongThreads) {
-    p[j] = -1;
-    v[j] = 0.0f;
-    if (j < m) used[j] = 0;
+  for (int jj = tid; jj < cnt; jj += kLongThreads) {
+    v[jj] = 0.0f;
+    p[jj] = -1;
+    used[jj] = 0;
   }
-  for (int r = tid; r < n; r += kLongThreads) {
-    u[r] = 0.0f;
-    inv[r] = -1;
-  }
+  for (int r = tid; r < n; r += kLongThreads) u[r] = 0.0f;
+  if (rank == 0)
+    for (int r = tid; r < n; r += kLongThreads) out[r] = -1;
+  cluster.sync();  // the whole cluster runs, row2col is cleared before any atomicMax
+
   int total_steps = 0;
-  __syncthreads();
-
+  unsigned gstep = 0;  // steps over all rows: the parity of the slots
+  bool dup = false;    // after a degenerate walk two columns may hold one row
   for (int i = 0; i < n; ++i) {
-    if (tid == 0) {
-      p[m] = i;
-      sh_nrows = 0;
-      sh_ncols = 0;
-    }
-    int j0 = m, steps = 0;
+    int i0 = i, j1 = m, steps = 0;
     float pending = 0.0f;  // the previous step's delta, owed to minv
-    __syncthreads();
+    bool scan = dup, irregular = false;
     while (true) {
-      // mark j0 used, visit its row
-      if (tid == 0) {
-        if (j0 < m) used[j0] = 1;
-        vcols[sh_ncols++] = j0;
-        const int i0 = p[j0];
-        vrows[sh_nrows++] = i0;
-        sh_i0 = i0;
-        sh_ui0 = u[i0];
+      // u[i0] as the plain loop holds it now: as the search found it, unless
+      // (degenerate searches only) the row was visited earlier in this one
+      float ui0 = u[i0];
+      if (scan && steps > 0) {
+        int f = -1;
+        for (int t = 0; t < steps && f < 0; ++t)
+          if ((t == 0 ? i : winner(list, spill, lc, t - 1).z) == i0) f = t;
+        if (f >= 0) {
+          for (int t = f; t < steps - 1; ++t)
+            ui0 = ui0 + __int_as_float(winner(list, spill, lc, t).y);
+          ui0 = ui0 + pending;
+        }
       }
-      __syncthreads();
-      const int i0 = sh_i0;
-      const float ui0 = sh_ui0;
       const float* crow = C + (size_t)i0 * m;
-      float best = __int_as_float(0x7f800000);
-      int best_j = INT_MAX;
-      for (int j = tid; j < m; j += kLongThreads) {
-        float masked = kInf;  // a used column: the plain loop's masked value
-        if (!used[j]) {
-          float mv;
-          int wv;
-          if (steps == 0) {
-            mv = kInf;
-            wv = 0;
-          } else {
-            mv = minv[j] - pending;
-            wv = way[j];
+      float best = 0.0f;
+      int best_jj = -1;
+      for (int c0 = 0; c0 < cnt; c0 += kLongThreads * kChunk) {
+        float cv[kChunk];
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int jj = c0 + tid + k * kLongThreads;
+          cv[k] = jj < cnt ? __ldg(crow + jj) : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {  // no branch on used: every load issued at once
+          const int jj = c0 + tid + k * kLongThreads;
+          const bool in = jj < cnt;
+          const bool avail = in && !used[jj];
+          float mv = kInf;
+          int wv = kWayInit;
+          if (steps > 0 && in) {
+            mv = minv[jj] - pending;
+            wv = way[jj];
           }
-          const float cur = (__ldg(crow + j) - ui0) - v[j];
+          const float cur = (cv[k] - ui0) - (in ? v[jj] : 0.0f);
           if (cur < mv) {
             mv = cur;
-            wv = j0;
+            wv = steps;
           }
-          minv[j] = mv;
-          way[j] = wv;
-          masked = mv;
-        }
-        if (masked < best) {  // strict: the first minimum, j rising
-          best = masked;
-          best_j = j;
+          if (avail) {
+            minv[jj] = mv;
+            way[jj] = wv;
+          }
+          const float masked = avail ? mv : kInf;  // a used column: the plain loop's masked value
+          if (in && (best_jj < 0 || masked < best)) {  // strict: the first minimum, jj rising
+            best = masked;
+            best_jj = jj;
+          }
         }
       }
-      const unsigned key = order_key(best);
+      // the warp's first least (key, column), then the CTA's: its slot
+      const unsigned key = best_jj >= 0 ? order_key(best) : 0xffffffffu;
+      const unsigned gcol = best_jj >= 0 ? (unsigned)(base + best_jj) : 0xffffffffu;
       const unsigned least = __reduce_min_sync(kFull, key);
-      const unsigned col = __reduce_min_sync(kFull, key == least ? (unsigned)best_j : 0xffffffffu);
-      if (lane == 0) {
-        warp_key[warp] = least;
-        warp_col[warp] = (int)col;
+      const unsigned col = __reduce_min_sync(kFull, key == least ? gcol : 0xffffffffu);
+      if (col == 0xffffffffu) {
+        if (lane == 0) warp_best[warp] = make_int4(-1, 0, 0, 0);  // no column
+      } else if (key == least && gcol == col) {
+        warp_best[warp] = make_int4(
+            (int)col, __float_as_int(best), p[best_jj], used[best_jj] ? kWayUsed : way[best_jj]);
       }
-      if (key == least && (unsigned)best_j == col) warp_val[warp] = best;
       __syncthreads();
+      const unsigned par = gstep & 1u;
       if (warp == 0) {
-        const unsigned k2 = warp_key[lane];
-        const unsigned l2 = __reduce_min_sync(kFull, k2);
-        const unsigned c2 = __reduce_min_sync(kFull, k2 == l2 ? (unsigned)warp_col[lane]
-                                                              : 0xffffffffu);
-        if (k2 == l2 && (unsigned)warp_col[lane] == c2) {  // delta bit for bit
-          sh_j1 = (int)c2;
-          sh_delta = warp_val[lane];
+        const int4 s = lane < kLongWarps ? warp_best[lane] : make_int4(-1, 0, 0, 0);
+        const int4 w = least_slot(s);
+        if (lane == 0) slots[par] = w;
+      }
+      cluster.sync();
+      // warp 0 merges the cluster's K slots (the same winner in every CTA)
+      if (warp == 0) {
+        const int4 w = least_slot(lane < K ? *cluster.map_shared_rank(slots + par, (unsigned)lane)
+                                           : make_int4(-1, 0, 0, 0));
+        if (lane == 0) *won = w;
+      }
+      __syncthreads();
+      const int4 win = *won;
+      j1 = win.x;
+      const int delta_bits = win.y;
+      const int prow = win.z;
+      const int wstep = win.w;
+
+      const int jj1 = j1 - base;  // mark j1 used: its owner thread
+      if (jj1 >= 0 && jj1 < cnt && jj1 % kLongThreads == tid) used[jj1] = 1;
+      if (tid == 0) {
+        const int4 rec = make_int4(j1, delta_bits, prow, wstep);
+        if (steps < lc) {
+          list[steps] = rec;
+        } else {
+          __stcg(spill + steps, rec);
         }
       }
-      __syncthreads();
-      const int j1 = sh_j1;
-      const float delta = sh_delta;
-      const int nr = sh_nrows, nc = sh_ncols;
-      for (int k = tid; k < nr; k += kLongThreads) u[vrows[k]] = u[vrows[k]] + delta;
-      for (int k = tid; k < nc; k += kLongThreads) v[vcols[k]] = v[vcols[k]] - delta;
-      pending = delta;
-      j0 = j1;
+      if (wstep < 0) scan = irregular = true;
+      pending = __int_as_float(delta_bits);
       ++steps;
-      if (tid == 0) sh_go = p[j0] != -1 && steps <= m;
-      __syncthreads();
-      if (!sh_go) break;
+      ++gstep;
+      i0 = prow;
+      if (prow == -1 || steps > m) break;
     }
+    __syncthreads();  // the last winner and the column state, CTA-wide
 
     // augment: walk way back to the virtual column, shifting matches
-    if (tid == 0) {
-      for (int s = 0; s < steps && j0 != m; ++s) {
-        const int j1 = way[j0];
-        p[j0] = p[j1];
-        j0 = j1;
+    if (irregular || steps > m) {
+      cluster.sync();  // every CTA's way and p final
+      if (rank == 0 && tid == 0) {  // the plain loop's walk, through DSMEM
+        int j = j1;
+        for (int s = 0; s < steps && j != m; ++s) {
+          const int r = j / cs;
+          const int w = cluster.map_shared_rank(way, (unsigned)r)[j - r * cs];
+          const int jn = w < 0 ? 0 : (w == 0 ? m : winner(list, spill, lc, w - 1).x);
+          const int rn = jn / cs;
+          const int pv = jn == m ? i : cluster.map_shared_rank(p, (unsigned)rn)[jn - rn * cs];
+          cluster.map_shared_rank(p, (unsigned)r)[j - r * cs] = pv;
+          j = jn;
+        }
       }
-      p[m] = -1;
+      cluster.sync();
+      dup = true;
+    } else if (tid == 0) {  // the path from the winners: p[c_t] = the row of step way(c_t)
+      for (int t = steps, hops = 0; t != 0 && hops < steps; ++hops) {  // way(c_t) < t
+        const int4 rec = winner(list, spill, lc, t - 1);
+        const int jj = rec.x - base;
+        if (jj >= 0 && jj < cnt) p[jj] = rec.w == 0 ? i : winner(list, spill, lc, rec.w - 1).z;
+        t = rec.w;
+      }
     }
-    // clear the used flags of this search's columns
-    const int nc = sh_ncols;
-    for (int k = tid; k < nc; k += kLongThreads)
-      if (vcols[k] < m) used[vcols[k]] = 0;
+    // v -= delta on the columns used from step t on (the column step t - 1
+    // picked), u += delta on the rows visited from step t on: the plain
+    // loop's per-step updates, made now in its order
+    for (int t = 1 + tid; t < steps; t += kLongThreads) {
+      const int c = winner(list, spill, lc, t - 1).x;
+      const int jj = c - base;
+      if (jj < 0 || jj >= cnt) continue;
+      bool seen = false;
+      for (int t2 = 0; scan && t2 < t - 1 && !seen; ++t2) seen = winner(list, spill, lc, t2).x == c;
+      if (seen) continue;
+      float vv = v[jj];
+      for (int s = t; s < steps; ++s) vv = vv - __int_as_float(winner(list, spill, lc, s).y);
+      v[jj] = vv;
+    }
+    for (int t = tid; t < steps; t += kLongThreads) {
+      const int r = t == 0 ? i : winner(list, spill, lc, t - 1).z;
+      bool seen = false;
+      for (int t2 = 0; scan && t2 < t && !seen; ++t2)
+        seen = (t2 == 0 ? i : winner(list, spill, lc, t2 - 1).z) == r;
+      if (seen) continue;
+      float uu = u[r];
+      for (int s = t; s < steps; ++s) uu = uu + __int_as_float(winner(list, spill, lc, s).y);
+      u[r] = uu;
+    }
+    for (int t = tid; t < steps; t += kLongThreads) {
+      const int jj = winner(list, spill, lc, t).x - base;
+      if (jj >= 0 && jj < cnt) used[jj] = 0;
+    }
     total_steps += steps;
     __syncthreads();
   }
 
-  for (int j = tid; j < m; j += kLongThreads)
-    if (p[j] >= 0) atomicMax(&inv[p[j]], j);
-  __syncthreads();
-  long long* out = row2col + (size_t)blockIdx.x * n;
-  for (int r = tid; r < n; r += kLongThreads) out[r] = inv[r];
-  if (tid == 0) steps_out[blockIdx.x] = total_steps;
+  for (int jj = tid; jj < cnt; jj += kLongThreads)
+    if (p[jj] >= 0) atomicMax(out + p[jj], (long long)(base + jj));
+  if (rank == 0 && tid == 0) steps_out[prob] = total_steps;
+  cluster.sync();  // no CTA leaves while another may still read its slots
+}
+
+// The long instance's cluster for B problems of m columns: the largest K of
+// 16, 8, 4, 2 whose cluster, with its shared memory, the card can place
+// (cudaOccupancyMaxActiveClusters). Fills cfg and attr for the launch and
+// returns K, or 0 when no cluster fits.
+int long_cluster(int B, int m, int lc, cudaStream_t stream, cudaLaunchAttribute* attr,
+                 cudaLaunchConfig_t* cfg) {
+  for (int K = kMaxCluster; K >= 2; K /= 2) {
+    const size_t smem = long_smem_bytes((m + K - 1) / K, lc);
+    if (smem > (size_t)kLongMaxSmem) continue;
+    if (cudaFuncSetAttribute(hungarian_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem) != cudaSuccess ||
+        (K > 8 && cudaFuncSetAttribute(hungarian_long_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                       1) != cudaSuccess)) {
+      (void)cudaGetLastError();
+      continue;
+    }
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = (unsigned)K;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3((unsigned)(B * K));
+    cfg->blockDim = dim3(kLongThreads);
+    cfg->dynamicSmemBytes = smem;
+    cfg->stream = stream;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, hungarian_long_kernel, cfg) == cudaSuccess &&
+        clusters > 0)
+      return K;
+    (void)cudaGetLastError();
+  }
+  return 0;
 }
 
 }  // namespace
@@ -394,14 +556,31 @@ extern "C" long long hungarian_long_workspace(int n, int m) {
   return (long long)long_ws_words(n, m);
 }
 
-// As hungarian_solve, for 1 <= n <= m <= 65536: the long instance. ws is
+// As hungarian_solve, for 1 <= n <= m <= 65536: the long instance, one
+// cluster of K CTAs per problem (hungarian_long_cluster). ws is
 // B * hungarian_long_workspace(n, m) 4-byte words of device memory, which
-// the kernel initializes itself.
+// the kernel initializes itself. Returns cudaErrorInvalidConfiguration,
+// launching nothing, when no cluster fits.
 extern "C" int hungarian_solve_long(const void* cost, void* row2col, void* steps, int B, int n,
                                     int m, void* ws, void* stream) {
   if (B < 1 || n < 1 || n > m || m > kLongMaxCols) return (int)cudaErrorInvalidValue;
-  hungarian_long_kernel<<<B, kLongThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(cost), static_cast<long long*>(row2col),
-      static_cast<int*>(steps), n, m, static_cast<int*>(ws));
+  const int lc = m + 2 < kListCap ? m + 2 : kListCap;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int K = long_cluster(B, m, lc, (cudaStream_t)stream, &attr, &cfg);
+  if (K == 0) return (int)cudaErrorInvalidConfiguration;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, hungarian_long_kernel, static_cast<const float*>(cost),
+      static_cast<long long*>(row2col), static_cast<int*>(steps), n, m, K, (m + K - 1) / K, lc,
+      static_cast<int*>(ws));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The cluster size hungarian_solve_long launches for m columns, 0 if none fits.
+extern "C" int hungarian_long_cluster(int m) {
+  if (m < 1 || m > kLongMaxCols) return 0;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  return long_cluster(1, m, m + 2 < kListCap ? m + 2 : kListCap, nullptr, &attr, &cfg);
 }

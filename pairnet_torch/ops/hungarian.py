@@ -6,15 +6,17 @@ shortest-augmenting-path algorithm, with the same padding contract
 first minimum: ``torch.argmin`` returns the first, as ``jnp.argmin`` does).
 
 The JAX solver is a ``while_loop`` under ``jit``/``vmap`` that never comes
-back to the host. Its counterpart here is ``csrc/hungarian.cu``, one CTA
-per problem, launched on the current stream, no host sync, in two
-instances picked by m, the longer side of a problem:
+back to the host. Its counterpart here is ``csrc/hungarian.cu``, launched
+on the current stream, no host sync, in two instances picked by m, the
+longer side of a problem:
 
 * m <= ``SHORT_COLS`` (256): one warp solves with the columns in its
   registers (the matchers of the decoder queries);
-* ``SHORT_COLS`` < m <= ``MAX_COLS`` (65,536): 1024 threads over the
-  columns, their state in a workspace on the card (the detection-only
-  loss's encoder matcher: S proposals against the GT boxes).
+* ``SHORT_COLS`` < m <= ``MAX_COLS`` (65,536): a thread-block cluster of
+  up to 16 CTAs a problem, each with a slice of the columns and their
+  state in its shared memory, one cluster barrier a search step (the
+  detection-only loss's encoder matcher: S proposals against the GT
+  boxes).
 
 On CUDA tensors :func:`batched_hungarian` launches one of them
 (``batched_hungarian.launches``) or raises, for more than ``MAX_COLS``
@@ -58,6 +60,8 @@ def _lib():
     lib.hungarian_solve_long.restype = ctypes.c_int
     lib.hungarian_long_workspace.argtypes = [_I, _I]
     lib.hungarian_long_workspace.restype = ctypes.c_longlong
+    lib.hungarian_long_cluster.argtypes = [_I]
+    lib.hungarian_long_cluster.restype = ctypes.c_int
     return lib
 
 
@@ -149,7 +153,7 @@ def solve_n_le_m_cuda(cost):
         if m <= SHORT_COLS:
             status = _lib().hungarian_solve(cost.data_ptr(), row2col.data_ptr(),
                                             steps.data_ptr(), B, n, m, stream)
-        else:  # the long instance, its column state in a workspace it initializes
+        else:  # the long instance; u and its spilled search winners in a workspace
             ws = torch.empty((B * _lib().hungarian_long_workspace(n, m),), dtype=torch.int32,
                              device=cost.device)
             status = _lib().hungarian_solve_long(cost.data_ptr(), row2col.data_ptr(),
@@ -159,6 +163,12 @@ def solve_n_le_m_cuda(cost):
     if m > SHORT_COLS:
         batched_hungarian.long_launches += 1
     return row2col, steps
+
+
+def long_cluster(m: int) -> int:
+    """CTAs a problem of m columns gets from the long instance on the
+    current card (its cluster size), 0 if no cluster fits."""
+    return _lib().hungarian_long_cluster(m)
 
 
 def _solve_n_le_m(cost):

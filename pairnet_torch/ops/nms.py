@@ -9,10 +9,12 @@ class-offset trick, ``multiclass_nms`` keeps every (box, class) pair above
 a score threshold.
 
 The sweep over the sorted boxes is :func:`nms_sorted`: on CUDA tensors it
-launches ``csrc/nms.cu`` (one CTA an image, ``nms_sorted.launches``) or
-raises, for more boxes than the kernel holds or a failed build or launch;
-CPU tensors take :func:`nms_sorted_plain`, the same sweep as a loop of
-torch ops over the sorted IoU matrix (it runs on any device).
+calls ``csrc/nms.cu`` (``nms_sorted.launches`` counts the calls; each call
+is two kernel launches: the pairwise suppression bitmask, then a sweep of
+one CTA an image over 64-box blocks) or raises, for more boxes than the
+kernel holds or a failed build or launch; CPU tensors take
+:func:`nms_sorted_plain`, the same sweep as a loop of torch ops over the
+sorted IoU matrix (it runs on any device).
 """
 
 from __future__ import annotations
@@ -32,8 +34,14 @@ _I = ctypes.c_int
 @functools.cache
 def _lib():
     lib = _build.load("nms")
-    lib.nms_sorted.argtypes = [_P, _P, _P, _I, _I, ctypes.c_float, _P]
+    lib.nms_sorted.argtypes = [_P, _P, _P, _P, _I, _I, ctypes.c_float, _P]
     lib.nms_sorted.restype = ctypes.c_int
+    lib.nms_scratch_bytes.argtypes = [_I, _I]
+    lib.nms_scratch_bytes.restype = ctypes.c_longlong
+    lib.nms_mask.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P]
+    lib.nms_mask.restype = ctypes.c_int
+    lib.nms_sweep.argtypes = [_P, _P, _P, _I, _I, _P]
+    lib.nms_sweep.restype = ctypes.c_int
     lib.nms_max_boxes.argtypes = []
     lib.nms_max_boxes.restype = ctypes.c_int
     return lib
@@ -53,24 +61,56 @@ def nms_sorted_plain(boxes, valid, iou_threshold: float):
     return keep
 
 
-def nms_sorted_cuda(boxes, valid, iou_threshold: float):
-    """``csrc/nms.cu`` on boxes (B, N, 4) f32 sorted by score, ``valid``
-    (B, N): the keep mask (B, N) in the sorted order."""
+def _kernel_args(boxes, valid):
+    """The kernels' buffers: boxes f32 and valid bytes (contiguous), the
+    bool keep mask they write, and the suppression words' scratch."""
     B, N, _ = boxes.shape
     if N > _lib().nms_max_boxes():
         raise ValueError(f"nms: {N} boxes an image, the kernel holds at most "
                          f"{_lib().nms_max_boxes()}")
-    boxes = boxes.float().contiguous()
-    valid = valid.to(torch.uint8).contiguous()
-    keep = torch.empty((B, N), dtype=torch.uint8, device=boxes.device)
+    keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
+    scratch = torch.empty((_lib().nms_scratch_bytes(B, N) if B and N else 0,),
+                          dtype=torch.uint8, device=boxes.device)
+    return (boxes.float().contiguous(), valid.to(torch.bool).contiguous().view(torch.uint8),
+            keep, scratch)
+
+
+def _launch(device, status_fn, what):
+    with torch.cuda.device(device):
+        _build.check(status_fn(torch.cuda.current_stream(device).cuda_stream), what)
+
+
+def nms_sorted_cuda(boxes, valid, iou_threshold: float):
+    """``csrc/nms.cu`` on boxes (B, N, 4) f32 sorted by score, ``valid``
+    (B, N): the keep mask (B, N) in the sorted order. One call launches the
+    mask kernel and the sweep; their scratch (B * N * ceil(N / 64) words)
+    comes from torch's allocator."""
+    B, N, _ = boxes.shape
+    boxes, valid, keep, scratch = _kernel_args(boxes, valid)
     if B and N:
-        with torch.cuda.device(boxes.device):
-            stream = torch.cuda.current_stream(boxes.device).cuda_stream
-            status = _lib().nms_sorted(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), B, N,
-                                       float(iou_threshold), stream)
-        _build.check(status, "nms")
+        _launch(boxes.device, lambda s: _lib().nms_sorted(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(), B, N,
+            float(iou_threshold), s), "nms")
         nms_sorted.launches += 1
-    return keep.bool()
+    return keep
+
+
+def nms_sorted_parts(boxes, valid, iou_threshold: float):
+    """:func:`nms_sorted_cuda`'s two launches as two calls, to time them
+    apart: ``(mask, sweep, keep)``; ``mask()`` writes the suppression
+    words, ``sweep()`` reads them into ``keep``. Counts no launch."""
+    B, N, _ = boxes.shape
+    boxes, valid, keep, scratch = _kernel_args(boxes, valid)
+
+    def mask():
+        _launch(boxes.device, lambda s: _lib().nms_mask(
+            boxes.data_ptr(), scratch.data_ptr(), B, N, float(iou_threshold), s), "nms mask")
+
+    def sweep():
+        _launch(boxes.device, lambda s: _lib().nms_sweep(
+            scratch.data_ptr(), valid.data_ptr(), keep.data_ptr(), B, N, s), "nms sweep")
+
+    return mask, sweep, keep
 
 
 def nms_sorted(boxes, valid, iou_threshold: float):
@@ -82,7 +122,7 @@ def nms_sorted(boxes, valid, iou_threshold: float):
     return nms_sorted_cuda(boxes, valid, iou_threshold)
 
 
-nms_sorted.launches = 0
+nms_sorted.launches = 0  # calls that reached the kernels (two launches each)
 
 
 def score_order(scores, valid):

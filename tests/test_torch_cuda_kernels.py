@@ -487,18 +487,52 @@ def test_hungarian_kernel_nan_row_terminates():
 
 @pytest.mark.parametrize("kind", ["normal", "ties", "padded", "nan_entry"])
 @pytest.mark.parametrize("B, n, m", [(2, 6, 300), (2, 4, 1000), (3, 300, 6), (2, 64, 22323),
-                                     (1, 100, 37485), (1, 8, MAX_COLS)])
+                                     (1, 100, 37485), (1, 8, MAX_COLS), (2, 9, 257),
+                                     (2, 100, 4099)])
 def test_hungarian_long_instance_matches_plain(kind, B, n, m):
     """Above SHORT_COLS columns the long instance solves (one launch of it),
     equal to the plain loop bit for bit: tall problems as given and after
     the n > m transpose, the detection-only loss's encoder matcher (64 GT
     boxes against the 22,323 proposals at 800x1344; 100 against 37,485 at
-    1344x1344) and the instance's limit."""
+    1344x1344), the instance's limit, its smallest problem (m = 257: a
+    column or two in the cluster's last CTA) and m a multiple of neither 8
+    nor 16 (4,099)."""
     long_before = batched_hungarian.long_launches
     got, want, n_launch = _hungarian_on_card(*_hungarian_case(kind, B, n, m, seed=B * n + m))
     assert n_launch == 1 and batched_hungarian.long_launches == long_before + 1
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_hungarian_long_instance_clusters():
+    """The long instance runs a cluster of at least 2 CTAs a problem at its
+    smallest m, at the encoder matcher's and at its limit."""
+    from pairnet_torch.ops.hungarian import long_cluster
+
+    _on_card(np.zeros(1, np.float32))
+    sizes = {m: long_cluster(m) for m in (SHORT_COLS + 1, 22323, MAX_COLS)}
+    print("cluster sizes", sizes)
+    assert all(k >= 2 for k in sizes.values())
+
+
+def test_hungarian_long_instance_nan_row_terminates():
+    """A whole row of NaN costs in a long problem (a degenerate search: its
+    way is never set, the plain walk runs through distributed shared
+    memory): the kernel returns with the plain loop's assignments and
+    search steps."""
+    from pairnet_torch.ops.hungarian import solve_n_le_m_plain
+
+    cost = np.random.default_rng(5).normal(size=(2, 5, 300)).astype(np.float32)
+    cost[0, 2] = np.nan
+    c, = _on_card(cost)
+    row2col, steps = solve_n_le_m_cuda(c)
+    torch.cuda.synchronize()
+    for b in range(2):
+        syncs = batched_hungarian.syncs
+        want = solve_n_le_m_plain(torch.tensor(cost[b:b + 1]))[0]
+        print("problem", b, "kernel", row2col[b].tolist(), int(steps[b]), "plain", want.tolist())
+        np.testing.assert_array_equal(row2col[b].cpu().numpy(), want.numpy())
+        assert int(steps[b]) == batched_hungarian.syncs - syncs
 
 
 def test_hungarian_kernel_raises_above_its_limit():
@@ -554,12 +588,15 @@ def nms_boxes(seed, B, n, spread=800.0, ties=True):
 
 
 @pytest.mark.parametrize("B, n, thr", [(2, 4819, 0.7), (2, 256, 0.5), (3, 1, 0.5),
-                                       (1, 1000, 0.7), (1, 12288, 0.5)],
-                         ids=["rpn", "detections", "one_box", "thr_0.7_ties", "largest"])
+                                       (1, 1000, 0.7), (1, 12288, 0.5), (2, 63, 0.5),
+                                       (2, 64, 0.7), (2, 65, 0.5), (2, 4097, 0.7)],
+                         ids=["rpn", "detections", "one_box", "thr_0.7_ties", "largest",
+                              "63", "64", "65", "4097"])
 def test_nms_kernel_matches_plain(B, n, thr):
     """``csrc/nms.cu`` against the plain sweep: equal keep masks at the RPN's
     and the detections' geometries, ties, IoU exactly at the threshold,
-    invalid entries, the largest N the kernel holds."""
+    invalid entries, the largest N the kernel holds, N either side of a
+    64-box block and one box past 64 blocks (4,097)."""
     boxes, scores, valid = _on_card(*nms_boxes(n, B, n))
     launches = nms.nms_sorted.launches
     got = nms.nms(boxes, scores, thr, valid)
@@ -567,6 +604,38 @@ def test_nms_kernel_matches_plain(B, n, thr):
     assert nms.nms_sorted.launches == launches + 1
     want = nms.nms(boxes.cpu(), scores.cpu(), thr, valid.cpu())
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_nms_kernel_suppression_chain():
+    """4,097 boxes in a row, each overlapping the next (IoU 1/3 > 0.3) and
+    no other: every block's diagonal takes the most rounds, and the keep
+    mask is the plain sweep's, every other box."""
+    x = np.arange(4097, dtype=np.float32) * 5
+    boxes = np.stack([x, np.zeros_like(x), x + 10, np.full_like(x, 10)], -1)[None]
+    b, v = _on_card(np.repeat(boxes, 2, 0), np.ones((2, 4097), bool))
+    got = nms.nms_sorted_cuda(b, v, 0.3)
+    torch.cuda.synchronize()
+    want = nms.nms_sorted_plain(b.cpu(), v.cpu(), 0.3)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert bool(want[0, ::2].all()) and not bool(want[0, 1::2].any())
+
+
+def test_nms_kernel_parts_launched_apart():
+    """The mask kernel and the sweep called one by one (as they are timed)
+    keep what one call keeps, and count no launch."""
+    boxes, scores, valid = nms_boxes(3, 2, 4819)
+    order = nms.score_order(*_on_card(scores, valid))
+    b, v = _on_card(boxes, valid)
+    b = torch.gather(b, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    v = torch.gather(v, 1, order).contiguous()
+    want = nms.nms_sorted_cuda(b, v, 0.7)
+    launches = nms.nms_sorted.launches
+    mask, sweep, keep = nms.nms_sorted_parts(b, v, 0.7)
+    mask()
+    sweep()
+    torch.cuda.synchronize()
+    assert nms.nms_sorted.launches == launches
+    assert torch.equal(keep, want)
 
 
 def test_nms_kernel_class_offset_and_limit():
