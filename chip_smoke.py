@@ -1219,7 +1219,7 @@ def zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_pl
     from pairnet_torch.ops.hungarian import (
         batched_hungarian,
         solve_n_le_m_cuda,
-        solve_n_le_m_plain,
+        solve_n_le_m_plain_steps,
     )
     from pairnet_torch.tools import train as train_cli
     from pairnet_torch.tools.msda_kernels import cuda_ms
@@ -1412,19 +1412,25 @@ def zoo_phases(smi, tf32, score, int4_expect, launches, reset_launches, count_pl
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
-    # the Hungarian kernel on the zoo matchers' own costs
+    # the Hungarian kernel on the zoo matchers' own costs, held to the plain loop
     hung = []
     for (path, shape), cost in solver_costs.items():
-        _, steps = solve_n_le_m_cuda(cost)
+        r2c, steps = solve_n_le_m_cuda(cost)
+        (want_r2c, want_steps), plain_ms = plain_with_ms(lambda: solve_n_le_m_plain_steps(cost))
+        check(torch.equal(r2c, want_r2c) and torch.equal(steps, want_steps),
+              f"{path} {shape}: the Hungarian kernel's assignments or search steps differ from "
+              "the plain loop's")
         B_, n_, m_ = shape
         e = {"config": path, "solved_as": list(shape),
              "ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 20),
              "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(cost), 20, spin=True),
-             "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(cost), 1),
+             "plain_ms": plain_ms,
              "bound_ms": (cost.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3,
              "search_steps": int(steps.sum()), "search_steps_max": int(steps.max())}
         e["ns_per_step"] = e["device_ms"] * 1e6 / max(e["search_steps_max"], 1)
         hung.append(e)
+    keep_loop_input("short_zoo", {f"{path} {tuple(shape)}": cost
+                                  for (path, shape), cost in solver_costs.items()})
 
     # Baseline's f32 train step (batch 1, TF32 off): the exact forward and
     # bwd2 backward against the plain MSDA, replaying the kernel run's
@@ -2079,6 +2085,17 @@ def nms_flops(boxes, valid, keep, thr):
     return IOU_OPS * nms_swept(boxes, valid, keep, thr) + AREA_OPS * int(valid.sum())
 
 
+def plain_with_ms(fn):
+    """fn()'s result and its ms by CUDA events around one call (the plain
+    Hungarian loop: its result is checked and the same call timed)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def keep_loop_input(name, value):
     """With ``CHIP_SMOKE_LOOP_INPUTS=FILE``, add a loop kernel's main-path
     inputs to that file (``torch.save``), for
@@ -2540,7 +2557,7 @@ def main():
         batched_hungarian_plain,
         prepare,
         solve_n_le_m_cuda,
-        solve_n_le_m_plain,
+        solve_n_le_m_plain_steps,
     )
     from pairnet_torch.ops.deform_attn_int4 import (
         int4_gather,
@@ -3332,6 +3349,10 @@ def main():
         if kind == "padded":
             rm[1::2, n - n // 3:] = False
             cm[::2, m - m // 4:] = False
+        if kind == "triplets":  # PSGTr's HTriMatcher: 3 and 5 of the GT slots valid
+            cost = 5 * cost
+            cm = torch.arange(m, device=dev)[None] < torch.tensor([3, 5] * (B // 2),
+                                                                  device=dev)[:, None]
         if kind == "nan entry":
             cost[:, n // 2, m // 3] = float("nan")
         return cost, rm, cm
@@ -3343,22 +3364,34 @@ def main():
                   "n < m 4x64x100": hung_case("normal", 4, 64, 100, 13),
                   "n > m 4x100x64": hung_case("normal", 4, 100, 64, 14),
                   "step shape 4x100x100": hung_case("normal", 4, 100, 100, 15),
-                  "nan entry 4x100x100": hung_case("nan entry", 4, 100, 100, 16)}
-    hung_err = {}
+                  "nan entry 4x100x100": hung_case("nan entry", 4, 100, 100, 16),
+                  "padded 12x100x100": hung_case("triplets", 12, 100, 100, 18)}
+    hung_err, hung_plain_ms = {}, {}
     for name, (c, rm, cm) in hung_cases.items():
-        got, want = batched_hungarian(c, rm, cm), batched_hungarian_plain(c, rm, cm)
+        pc = prepare(c, rm, cm)[0]
+        got, (r2c, steps) = batched_hungarian(c, rm, cm), solve_n_le_m_cuda(pc)
+        (want_r2c, want_steps), hung_plain_ms[name] = plain_with_ms(
+            lambda: solve_n_le_m_plain_steps(pc))
+        # the plain loop's row2col through the wrapper's own post-processing
+        want = hungarian_mod._assign(lambda _: want_r2c, c, rm, cm)
         torch.cuda.synchronize()
-        hung_err[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
-        check(hung_err[name] == 0, f"hungarian {name}: {hung_err[name]} assignments differ "
-              "from the plain loop's")
+        hung_err[name] = (sum(int((g != w).sum()) for g, w in zip(got, want))
+                          + int((r2c != want_r2c).sum()) + int((steps != want_steps).sum()))
+        check(hung_err[name] == 0, f"hungarian {name}: {hung_err[name]} assignments or search "
+              "step counts differ from the plain loop's")
     nan_row = hung_case("normal", 2, 3, 3, 17)[0]
     nan_row[0, 1] = float("nan")
     nan_r2c, nan_steps = solve_n_le_m_cuda(nan_row)
-    torch.cuda.synchronize()
-    log(f"[12] hungarian kernel vs plain loop, row2col and col2row equal on "
-        f"{ {k: tuple(v[0].shape) for k, v in hung_cases.items()} }; a whole NaN row "
-        f"terminates: row2col {nan_r2c.tolist()}, search steps {nan_steps.tolist()} (not held "
-        "to a reference)")
+    # after a degenerate search two columns may claim one row: the plain
+    # loop's scatter keeps the higher column on the CPU, either on the card
+    want_r2c, want_steps = solve_n_le_m_plain_steps(nan_row.cpu())
+    nan_r2c, nan_steps = nan_r2c.cpu(), nan_steps.cpu()
+    check(torch.equal(nan_r2c, want_r2c) and torch.equal(nan_steps, want_steps),
+          f"hungarian, a whole NaN row: row2col {nan_r2c.tolist()}, steps {nan_steps.tolist()}; "
+          f"the plain loop's {want_r2c.tolist()}, {want_steps.tolist()}")
+    log(f"[12] hungarian kernel vs plain loop, row2col, col2row and every problem's search "
+        f"steps equal on { {k: tuple(v[0].shape) for k, v in hung_cases.items()} }; a whole NaN "
+        f"row too: row2col {nan_r2c.tolist()}, search steps {nan_steps.tolist()}")
 
     def scipy_host_ms(c, rm, cm):
         """scipy's linear_sum_assignment per image on the valid submatrix,
@@ -3372,11 +3405,12 @@ def main():
             linear_sum_assignment(cost_h[b][rm_h[b]][:, cm_h[b]])
         return (time.perf_counter() - t0) * 1e3
 
-    hung_times = {}
-    for name in ("mask matcher", "id matcher", "n < m 4x64x100", "step shape 4x100x100"):
+    hung_times, hung_inputs = {}, {}
+    for name in ("mask matcher", "id matcher", "n < m 4x64x100", "step shape 4x100x100",
+                 "padded 12x100x100"):
         c, rm, cm = hung_cases[name]
         rm = torch.ones(c.shape[:2], dtype=torch.bool, device=dev) if rm is None else rm
-        pc = prepare(c, rm, cm)[0]
+        pc = hung_inputs[name] = prepare(c, rm, cm)[0]
         _, steps = solve_n_le_m_cuda(pc)
         B_, n_, m_ = pc.shape
         t_bytes = (pc.numel() * 4 + B_ * n_ * 8 + B_ * 4) / HBM_BYTES_PER_S * 1e3
@@ -3385,7 +3419,7 @@ def main():
             "ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(pc), 20),
             "device_ms": cuda_ms(torch, lambda: solve_n_le_m_cuda(pc), 20, spin=True),
             "wrapper_ms": cuda_ms(torch, lambda: batched_hungarian(c, rm, cm), 20),
-            "plain_ms": cuda_ms(torch, lambda: solve_n_le_m_plain(pc), 1),
+            "plain_ms": hung_plain_ms[name],
             "bound_ms": t_bytes,
             "search_steps": int(steps.sum()), "search_steps_max": int(steps.max()),
             "scipy_host_ms": scipy_host_ms(c, rm, cm),
@@ -3398,6 +3432,7 @@ def main():
             f"{e['search_steps']} in all, {e['search_steps_max']} in the longest problem "
             f"({e['ns_per_step']:.0f} ns a step); scipy on the host with the copy "
             f"{e['scipy_host_ms']:.3f} ms")
+    keep_loop_input("short_step", hung_inputs)
     step_times = [hung_times[k] for k in step_calls]
     kernels.append({
         "name": "hungarian", "route": "cuda", "source": "pairnet_torch/csrc/hungarian.cu",

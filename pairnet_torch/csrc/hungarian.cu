@@ -30,23 +30,50 @@
 // search steps (each one depends on the previous step's argmin). At the
 // step's shapes (4 problems of 64 x 100 and of 100 x 100) the costs are
 // 102-160 KB, 0.03-0.05 us at 3.35 TB/s, against a few hundred dependent
-// steps per problem. So the design shortens one step:
+// steps per problem (5,050 in a 100 x 100 problem padded to 3 valid
+// columns). So the design shortens one step's dependent chain:
 //   * one CTA per problem. Its 4 warps copy the cost matrix into shared
-//     memory (when it fits in 200 KB; otherwise the rows are read from
-//     global memory through the same pointer), then warps 1-3 leave and
-//     warp 0 solves with no barrier but __syncwarp;
-//   * lane l owns columns l, l + 32, ... (up to 8 at m <= 256): their minv,
-//     way, v and used bits live in registers; it also owns rows l, l + 32,
-//     ... (u and row_used in registers); p lives in shared memory;
-//   * the argmin is two warp reductions (__reduce_min_sync): the least key
-//     of the lanes' first minima, the IEEE order mapped to unsigned with
-//     -0 and +0 made equal (as `<` treats them), then the lowest column
-//     holding it, which keeps the first-minimum order; delta is read from
-//     the owning lane, bit for bit;
-//   * the augmenting walk reads way[j0] from its owner by a shuffle; lane 0
-//     writes p. The final inversion takes, for a row that two columns claim
-//     (a degenerate row), the higher column, as the plain loop's scatter
-//     on the CPU does.
+//     memory, rows padded to a multiple of S floats (when it fits; n = m =
+//     256 does not, and that instantiation reads the rows from global
+//     memory), then warps 1-3 leave and warp 0 solves with no barrier but
+//     __syncwarp;
+//   * lane l owns the contiguous columns [(31 - l) S, (32 - l) S), S the
+//     least of 1, 2, 4, 8 with 32 S >= m, a template parameter: a row slice
+//     is one shared-memory vector load (16 bytes at S = 4), and the ghost
+//     columns past m (in the low lanes) are never available. The lane keeps
+//     its columns' minv, way (as the search step that set it), v, p and
+//     pu = u[p] (the potential of the row the column holds) in registers;
+//   * a lane's masked values come from one compare and one select a slot
+//     (the select's other side, minv or 1e18, is ready before the row
+//     arrives), its least value from a tree of fminf, and the first slot
+//     holding it off the chain. Then one warp reduction (__reduce_min_sync)
+//     of the IEEE order as a signed key (-0 made +0, equal as `<` treats
+//     them) and a ballot: the highest lane holding the least key holds the
+//     first minimum, as columns fall with the lane. That lane sends delta,
+//     p[j1] and pu[j1] in one round of independent shuffles: the next row
+//     i0 and u[i0] arrive with the winner, with no shared-memory load or
+//     select on the chain;
+//   * off the chain, each step applies the plain loop's updates in its
+//     order: minv -= delta on available columns, v -= delta and pu += delta
+//     on used ones (a used column holds a visited row), and the inserted
+//     row's u += delta. The winner lane records (j1, p[j1], way[j1]) as one
+//     predicated 16-byte store into a winners list in shared memory, and
+//     notes in a register whether the step was degenerate;
+//   * between searches p (by column) and u (by row) live in shared memory:
+//     at a search's end the visited rows' u are written back, the
+//     augmenting path is walked from the winners list (p[c] = the row that
+//     the step way(c) visited), and the owners reload p and pu, with no
+//     branch;
+//   * a degenerate search (a column whose way was never set, as a whole
+//     NaN row leaves it, or a used column picked at cost 1e18) takes the
+//     plain loop's walk over the columns' way; two columns may then hold
+//     one row, so from then on the searches run a second copy of the step
+//     loop in which u stays per row in shared memory and every visited row
+//     adds each step's delta there, as the plain loop does. The final
+//     inversion takes, for a row that two columns claim, the higher column,
+//     as the plain loop's scatter on the CPU does.
+// Each of these was kept because copies of the source without it measured
+// slower on the card (PERF.md, section 6).
 // No fast-math: f32 subtractions and compares as the plain loop does them.
 //
 // A second instance, hungarian_long_kernel, takes 256 < m <= 65536: the
@@ -105,9 +132,8 @@
 namespace {
 
 constexpr int kMaxCols = 256;              // the kernel's limit on m
-constexpr int kSlots = kMaxCols / 32;      // columns (and rows) a lane owns
 constexpr int kThreads = 128;              // warps that stage the costs
-constexpr int kMaxSmem = 200 * 1024;       // staged costs, at most
+constexpr int kMaxSmem = 227 * 1024;       // a CTA's shared memory, at most
 constexpr float kInf = 1e18f;              // the plain loop's _INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -119,122 +145,300 @@ __device__ __forceinline__ unsigned order_key(float x) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
+// Columns a lane owns for m columns: the least of 1, 2, 4, 8 covering m.
+inline int short_slots(int m) { return m <= 32 ? 1 : m <= 64 ? 2 : m <= 128 ? 4 : 8; }
+// Cost row stride in shared memory: m padded to a multiple of S.
+__host__ __device__ inline int short_stride(int m, int S) { return (m + S - 1) / S * S; }
+// Shared memory of the short instance, in 4-byte words beside the staged
+// costs: the winners list (m + 2 int4 records, first: 16-byte aligned), pS
+// (m), uS (n), stamp (n), the visited rows (m + 2), the columns' ways for
+// the plain walk (m); then slack for the ghost lanes' reads past the end.
+__host__ __device__ inline size_t short_words(int n, int m, int S) {
+  return 4 * ((size_t)m + 2) + (size_t)m + 2 * n + ((size_t)m + 2) + m + 32 * S;
+}
+
+// The short instance's shared memory.
+struct ShortSmem {
+  int4* rec;        // the search's winners: (column, its p, its way as a step or -2 if used)
+  const float* cs;  // the staged costs, rows padded to a multiple of S
+  int* pS;          // between searches: the row each column holds
+  float* uS;        // between searches: u of each row (during them too, after a degenerate one)
+  int* stamp;       // the search that last visited a row, + 1 (per-row u)
+  int* vis;         // the rows a search visited (per-row u)
+  int* wayS;        // the columns' ways, for the plain walk
+};
+
+// The key of a masked value whose signed order is the IEEE order, with -0
+// made +0 (x + 0), so that -0 and +0 tie as `<` treats them. x is never
+// NaN here: masked values are minv entries (NaN never enters) or kInf.
+__device__ __forceinline__ int order_key_signed(float x) {
+  const int b = __float_as_int(x + 0.0f);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// One search, inserting row i: the steps it took. The lane's columns
+// [base, base + S) keep minv, way, v, p and pu in registers; the winner's
+// lane sends delta, p[j1] and pu[j1] (the next row and its u). kDup: after
+// a degenerate search, u per row in uS (two columns may hold one row).
+template <int S, bool kStaged, bool kDup>
+__device__ __forceinline__ int short_search(const ShortSmem& sm, const float* src, int i, int m,
+                                            int ms, int lane, float (&v)[S], float (&pu)[S],
+                                            const int (&p)[S], unsigned& used, float& ui,
+                                            bool& degen, float (&minv)[S], int (&way)[S]) {
+  const int base = (31 - lane) * S;
+  int i0 = i, steps = 0, nv = 0;
+  float ui0 = 0.0f;
+  while (true) {
+    if (kDup) {  // mark i0 visited, read its u as the plain loop holds it
+      const bool fresh = sm.stamp[i0] != i + 1;
+      __syncwarp();
+      if (fresh) {
+        if (lane == 0) {
+          sm.stamp[i0] = i + 1;
+          sm.vis[nv] = i0;
+        }
+        ++nv;
+      }
+      ui0 = sm.uS[i0];
+    }
+    float c[S];
+    if (kStaged) {
+      const float* crow = sm.cs + (size_t)i0 * ms + base;
+      if constexpr (S == 1) {
+        c[0] = *crow;
+      } else if constexpr (S == 2) {
+        const float2 q = *reinterpret_cast<const float2*>(crow);
+        c[0] = q.x;
+        c[1] = q.y;
+      } else {
+#pragma unroll
+        for (int h = 0; h < S; h += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(crow + h);
+          c[h] = q.x;
+          c[h + 1] = q.y;
+          c[h + 2] = q.z;
+          c[h + 3] = q.w;
+        }
+      }
+    } else {
+      const float* crow = src + (size_t)i0 * m + base;
+#pragma unroll
+      for (int k = 0; k < S; ++k) c[k] = base + k < m ? __ldg(crow + k) : 0.0f;
+    }
+    float val[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const bool avail = !((used >> k) & 1u);
+      const float mm = avail ? minv[k] : kInf;
+      const float cur = (c[k] - ui0) - v[k];
+      const bool better = avail && cur < minv[k];
+      val[k] = better ? cur : mm;
+      if (better) {
+        minv[k] = cur;
+        way[k] = steps;
+      }
+    }
+    float lo[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) lo[k] = val[k];
+#pragma unroll
+    for (int w = 1; w < S; w *= 2)  // the least value
+#pragma unroll
+      for (int k = 0; k + w < S; k += 2 * w) lo[k] = fminf(lo[k], lo[k + w]);
+    int bk = 0;
+#pragma unroll
+    for (int k = S - 1; k >= 0; --k)  // the first slot holding it
+      if (val[k] == lo[0]) bk = k;
+    int bp = -1, bw = -1;
+    float bpu = 0.0f, best = val[0];
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      if (k == bk) {
+        best = val[k];
+        bp = p[k];
+        bpu = pu[k];
+        bw = way[k];
+      }
+    const bool bused = (used >> bk) & 1u;
+    const float send_pu = bused ? bpu + best : bpu;  // a used column's row gets this delta too
+    const int key = order_key_signed(lo[0]);
+    const int least = __reduce_min_sync(kFull, key);
+    const int wl = 31 - __clz(__ballot_sync(kFull, key == least));
+    const float delta = __shfl_sync(kFull, best, wl);
+    const int row = __shfl_sync(kFull, bp, wl);
+    const float row_u = __shfl_sync(kFull, send_pu, wl);
+    const bool won = lane == wl;
+    if (won) sm.rec[steps] = make_int4(base + bk, bp, bused ? -2 : bw, 0);
+    degen |= won && (bused || bw < 0);
+    if (kDup) {
+      __syncwarp();
+      for (int t = lane; t < nv; t += 32) sm.uS[sm.vis[t]] = sm.uS[sm.vis[t]] + delta;
+      __syncwarp();
+    } else {
+      ui = ui + delta;
+    }
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if ((used >> k) & 1u) {
+        v[k] = v[k] - delta;
+        pu[k] = pu[k] + delta;
+      } else {
+        minv[k] = minv[k] - delta;
+      }
+    }
+    if (won) used |= 1u << bk;
+    ++steps;
+    i0 = row;
+    ui0 = row_u;
+    if (row == -1 || steps > m) return steps;
+  }
+}
+
+// One problem a CTA. S: columns a lane owns; kStaged: the costs in shared
+// memory (rows padded to a multiple of S), else read from global memory.
+template <int S, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     hungarian_kernel(const float* __restrict__ cost, long long* __restrict__ row2col,
-                     int* __restrict__ steps_out, int n, int m, int staged) {
+                     int* __restrict__ steps_out, int n, int m) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const size_t nm = (size_t)n * m;
-  const float* src = cost + (size_t)blockIdx.x * nm;
-  float* cs = reinterpret_cast<float*>(smem);
-  int* p = reinterpret_cast<int*>(smem + (staged ? nm * sizeof(float) : 0));  // m + 1
-  int* inv = p + (m + 1);                                                      // n
+  const int ms = short_stride(m, S);
+  const float* src = cost + (size_t)blockIdx.x * n * m;
+  ShortSmem sm;
+  sm.rec = reinterpret_cast<int4*>(smem);
+  float* cs = reinterpret_cast<float*>(sm.rec + (m + 2));
+  sm.cs = cs;
+  sm.pS = reinterpret_cast<int*>(cs + (kStaged ? (size_t)n * ms : 0));
+  sm.uS = reinterpret_cast<float*>(sm.pS + m);
+  sm.stamp = reinterpret_cast<int*>(sm.uS + n);
+  sm.vis = sm.stamp + n;
+  sm.wayS = sm.vis + (m + 2);
 
-  if (staged) {
-    if ((nm & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+  if (kStaged) {
+    if (ms == m && ((size_t)n * m & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
       const float4* s4 = reinterpret_cast<const float4*>(src);
       float4* d4 = reinterpret_cast<float4*>(cs);
 #pragma unroll 4
-      for (size_t k = threadIdx.x; k < nm / 4; k += kThreads) d4[k] = __ldg(s4 + k);
+      for (int k = threadIdx.x; k < n * m / 4; k += kThreads) d4[k] = __ldg(s4 + k);
     } else {
-#pragma unroll 4
-      for (size_t k = threadIdx.x; k < nm; k += kThreads) cs[k] = __ldg(src + k);
+      for (int k = threadIdx.x; k < n * ms; k += kThreads) {
+        const int r = k / ms, c = k - r * ms;
+        cs[k] = c < m ? __ldg(src + (size_t)r * m + c) : 0.0f;
+      }
     }
+  }
+  for (int j = threadIdx.x; j < m; j += kThreads) sm.pS[j] = -1;
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    sm.uS[r] = 0.0f;
+    sm.stamp[r] = 0;
   }
   __syncthreads();
   if (threadIdx.x >= 32) return;
-  const float* C = staged ? cs : src;
   const int lane = threadIdx.x;
+  const int base = (31 - lane) * S;  // the lane's first column
 
-  for (int j = lane; j <= m; j += 32) p[j] = -1;
-  for (int r = lane; r < n; r += 32) inv[r] = -1;
-  float u[kSlots], v[kSlots];
+  unsigned ghost = 0;  // bit k: column base + k is past m
+  float v[S], pu[S];
+  int p[S];
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) u[k] = v[k] = 0.0f;
+  for (int k = 0; k < S; ++k) {
+    if (base + k >= m) ghost |= 1u << k;
+    v[k] = pu[k] = 0.0f;
+    p[k] = -1;
+  }
   int total_steps = 0;
-  __syncwarp();
+  bool dup = false;  // after a degenerate search: u per row in uS
 
   for (int i = 0; i < n; ++i) {
-    if (lane == 0) p[m] = i;
-    __syncwarp();
-    float minv[kSlots];
-    int way[kSlots];
+    float minv[S];
+    int way[S];
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
+    for (int k = 0; k < S; ++k) {
       minv[k] = kInf;
-      way[k] = 0;
+      way[k] = -1;  // never set: the plain loop's way of column 0
     }
-    unsigned used = 0, row_used = 0;  // bit k: column / row lane + 32k
-    int j0 = m, steps = 0;
-    do {
-      if (j0 < m && (j0 & 31) == lane) used |= 1u << (j0 >> 5);
-      const int i0 = p[j0];
-      if ((i0 & 31) == lane) row_used |= 1u << (i0 >> 5);
-      float u_own = 0.0f;
+    unsigned used = ghost;  // bit k: column base + k used (ghosts always)
+    float ui = 0.0f;        // u of row i, the row being inserted
+    bool degen = false;     // this lane's winner was degenerate
+    const int steps =
+        dup ? short_search<S, kStaged, true>(sm, src, i, m, ms, lane, v, pu, p, used, ui, degen,
+                                             minv, way)
+            : short_search<S, kStaged, false>(sm, src, i, m, ms, lane, v, pu, p, used, ui, degen,
+                                              minv, way);
+    __syncwarp();  // the winners list
+    const bool degenerate = __any_sync(kFull, degen) || steps > m;
+    if (!dup) {  // u of the visited rows: the used columns' rows and row i
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k)
-        if (k == (i0 >> 5)) u_own = u[k];
-      const float ui0 = __shfl_sync(kFull, u_own, i0 & 31);
-      const float* crow = C + (size_t)i0 * m;
-      float best = __int_as_float(0x7f800000);  // +inf: above every masked value
-      int best_j = INT_MAX;
+      for (int k = 0; k < S; ++k)
+        if ((((used & ~ghost) >> k) & 1u) && p[k] >= 0) sm.uS[p[k]] = pu[k];
+      if (lane == 0) sm.uS[i] = ui;
+    }
+    if (degenerate) {  // the plain loop's walk over the columns' way
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        const int j = lane + 32 * k;
-        if (j < m) {
-          const bool avail = !((used >> k) & 1u);
-          const float cur = (crow[j] - ui0) - v[k];
-          if (avail && cur < minv[k]) {
-            minv[k] = cur;
-            way[k] = j0;
-          }
-          const float masked = avail ? minv[k] : kInf;
-          if (masked < best) {  // strict: the first minimum, j rising with k
-            best = masked;
-            best_j = j;
-          }
-        }
-      }
-      const unsigned key = order_key(best);
-      const unsigned least = __reduce_min_sync(kFull, key);
-      const int j1 = (int)__reduce_min_sync(kFull, key == least ? (unsigned)best_j : 0xffffffffu);
-      const float delta = __shfl_sync(kFull, best, j1 & 31);
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if ((row_used >> k) & 1u) u[k] = u[k] + delta;
-        if (lane + 32 * k < m) {
-          if ((used >> k) & 1u) {
-            v[k] = v[k] - delta;
-          } else {
-            minv[k] = minv[k] - delta;
-          }
-        }
-      }
-      j0 = j1;
-      ++steps;
-    } while (p[j0] != -1 && steps <= m);
-
-    // augment: walk way back to the virtual column, shifting matches
-    for (int s = 0; s < steps && j0 != m; ++s) {
-      int w_own = 0;
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k)
-        if (k == (j0 >> 5)) w_own = way[k];
-      const int j1 = __shfl_sync(kFull, w_own, j0 & 31);
-      if (lane == 0) p[j0] = p[j1];
+      for (int k = 0; k < S; ++k)
+        if (!((ghost >> k) & 1u)) sm.wayS[base + k] = way[k];
       __syncwarp();
-      j0 = j1;
+      if (lane == 0) {
+        int j = sm.rec[steps - 1].x;
+        for (int s = 0; s < steps && j != m; ++s) {
+          const int w = sm.wayS[j];
+          const int jn = w < 0 ? 0 : (w == 0 ? m : sm.rec[w - 1].x);
+          sm.pS[j] = jn == m ? i : sm.pS[jn];
+          j = jn;
+        }
+      }
+      dup = true;
+    } else if (lane == 0) {  // from the winners: p[c_t] = the row step way(c_t) visited
+      for (int t = steps, hops = 0; t != 0 && hops < steps; ++hops) {  // way(c_t) < t
+        const int4 r = sm.rec[t - 1];
+        sm.pS[r.x] = r.z == 0 ? i : sm.rec[r.z - 1].y;
+        t = r.z;
+      }
     }
-    if (lane == 0) p[m] = -1;
     __syncwarp();
+#pragma unroll
+    for (int k = 0; k < S; ++k)  // a ghost reads past pS's m entries, in bounds
+      p[k] = (ghost >> k) & 1u ? -1 : sm.pS[base + k];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float uk = sm.uS[max(p[k], 0)];
+      pu[k] = !dup && p[k] >= 0 ? uk : 0.0f;
+    }
     total_steps += steps;
   }
 
+  int* inv = sm.stamp;
+  for (int r = lane; r < n; r += 32) inv[r] = -1;
+  __syncwarp();
   for (int j = lane; j < m; j += 32)
-    if (p[j] >= 0) atomicMax(&inv[p[j]], j);
+    if (sm.pS[j] >= 0) atomicMax(&inv[sm.pS[j]], j);
   __syncwarp();
   long long* out = row2col + (size_t)blockIdx.x * n;
   for (int r = lane; r < n; r += 32) out[r] = inv[r];
   if (lane == 0) steps_out[blockIdx.x] = total_steps;
+}
+
+// Launch one instantiation with smem bytes of shared memory.
+template <int S, bool kStaged>
+int launch_instance(const float* cost, long long* row2col, int* steps, int B, int n, int m,
+                    size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hungarian_kernel<S, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  hungarian_kernel<S, kStaged><<<B, kThreads, smem, stream>>>(cost, row2col, steps, n, m);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for S slots: staged when the padded costs fit.
+template <int S>
+int launch_short(const float* cost, long long* row2col, int* steps, int B, int n, int m,
+                 cudaStream_t stream) {
+  const size_t words = short_words(n, m, S) * sizeof(int);
+  const size_t staged = (size_t)n * short_stride(m, S) * sizeof(float) + words;
+  if (staged <= (size_t)kMaxSmem)
+    return launch_instance<S, true>(cost, row2col, steps, B, n, m, staged, stream);
+  return launch_instance<S, false>(cost, row2col, steps, B, n, m, words, stream);
 }
 
 constexpr int kLongMaxCols = 65536;     // the long instance's limit on m
@@ -536,19 +740,16 @@ int long_cluster(int B, int m, int lc, cudaStream_t stream, cudaLaunchAttribute*
 extern "C" int hungarian_solve(const void* cost, void* row2col, void* steps, int B, int n,
                                int m, void* stream) {
   if (B < 1 || n < 1 || n > m || m > kMaxCols) return (int)cudaErrorInvalidValue;
-  const size_t idx_bytes = (size_t)(m + 1 + n) * sizeof(int);
-  const size_t cost_bytes = (size_t)n * m * sizeof(float);
-  const int staged = cost_bytes + idx_bytes <= (size_t)kMaxSmem;
-  const size_t smem = (staged ? cost_bytes : 0) + idx_bytes;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hungarian_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const float* c = static_cast<const float*>(cost);
+  long long* r = static_cast<long long*>(row2col);
+  int* s = static_cast<int*>(steps);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (short_slots(m)) {
+    case 1: return launch_short<1>(c, r, s, B, n, m, st);
+    case 2: return launch_short<2>(c, r, s, B, n, m, st);
+    case 4: return launch_short<4>(c, r, s, B, n, m, st);
+    default: return launch_short<8>(c, r, s, B, n, m, st);
   }
-  hungarian_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(cost), static_cast<long long*>(row2col),
-      static_cast<int*>(steps), n, m, staged);
-  return (int)cudaGetLastError();
 }
 
 // The workspace words per problem of hungarian_solve_long.

@@ -10,8 +10,10 @@ back to the host. Its counterpart here is ``csrc/hungarian.cu``, launched
 on the current stream, no host sync, in two instances picked by m, the
 longer side of a problem:
 
-* m <= ``SHORT_COLS`` (256): one warp solves with the columns in its
-  registers (the matchers of the decoder queries);
+* m <= ``SHORT_COLS`` (256): one warp solves, each lane holding a
+  contiguous slice of the columns and their state in registers; the lane
+  that wins a search step sends the next row and its potential with it
+  (the matchers of the decoder queries);
 * ``SHORT_COLS`` < m <= ``MAX_COLS`` (65,536): a thread-block cluster of
   up to 16 CTAs a problem, each with a slice of the columns and their
   state in its shared memory, one cluster barrier a search step (the
@@ -68,6 +70,13 @@ def _lib():
 def solve_n_le_m_plain(cost):
     """JV on a batch of (n, m) cost matrices, n <= m, f32. Returns row2col
     (B, n): the assigned column of every row (always valid since n <= m)."""
+    return solve_n_le_m_plain_steps(cost)[0]
+
+
+def solve_n_le_m_plain_steps(cost):
+    """:func:`solve_n_le_m_plain` with the search steps each problem took
+    over all its rows, int32 (B,), as :func:`solve_n_le_m_cuda` returns
+    them: (row2col, steps)."""
     B, n, m = cost.shape
     dev = cost.device
     bidx = torch.arange(B, device=dev)
@@ -77,6 +86,7 @@ def solve_n_le_m_plain(cost):
     # start column that holds the row being inserted
     p = torch.full((B, m + 1), -1, dtype=torch.long, device=dev)
     inf = cost.new_tensor(_INF)
+    steps_b = torch.zeros((B,), dtype=torch.int32, device=dev)
     for i in range(n):
         p[:, m] = i
         way = torch.zeros((B, m), dtype=torch.long, device=dev)
@@ -88,6 +98,7 @@ def solve_n_le_m_plain(cost):
         steps = 0
         while True:
             a = active[:, None]
+            steps_b += active.int()
             used_n = used.clone()
             used_n[bidx, j0] = True
             i0 = p[bidx, j0]
@@ -131,7 +142,7 @@ def solve_n_le_m_plain(cost):
     valid = p[:, :m] >= 0
     cols = torch.arange(m, device=dev).expand(B, m)
     row2col.scatter_(1, torch.where(valid, p[:, :m], n), torch.where(valid, cols, -1))
-    return row2col[:, :n]
+    return row2col[:, :n], steps_b
 
 
 def solve_n_le_m_cuda(cost):

@@ -96,28 +96,33 @@ def cuda_ms(torch, fn, iters, spin=False):
     return start.elapsed_time(end) / iters
 
 
-def kernel_split(torch, fn, calls):
+def kernel_split(torch, fn, calls, windows=3):
     """Each kernel (fills and copies included) that ``calls`` calls of
     ``fn`` launch, by ``torch.profiler``'s device events after 2 warm-up
     calls, the card synchronised after each call: its mean device ms per
     launch and its launches per call. The profiler has lost one call's
-    kernel records in 10 (H100, torch 2.11), so the exact count of a call's
-    launches is :func:`graph_nodes`'s."""
+    kernel records in 10, and once every device record of a window (H100,
+    torch 2.11), so the exact count of a call's launches is
+    :func:`graph_nodes`'s, and a window with no device record at all is
+    profiled again, up to ``windows`` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-            torch.cuda.synchronize()
     total_us, count = {}, {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            key = e.name[:80]
-            total_us[key] = total_us.get(key, 0.0) + e.time_range.elapsed_us()
-            count[key] = count.get(key, 0) + 1
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                key = e.name[:80]
+                total_us[key] = total_us.get(key, 0.0) + e.time_range.elapsed_us()
+                count[key] = count.get(key, 0) + 1
+        if count:
+            break
     return {key: {"ms": total_us[key] / 1e3 / n, "launches_per_call": n / calls}
             for key, n in count.items()}
 

@@ -49,7 +49,9 @@ from pairnet_torch.ops.hungarian import (  # noqa: E402
     SHORT_COLS,
     batched_hungarian,
     batched_hungarian_plain,
+    prepare,
     solve_n_le_m_cuda,
+    solve_n_le_m_plain_steps,
 )
 from pairnet_torch.ops import nms  # noqa: E402
 from pairnet_torch.ops.masked_attn import (  # noqa: E402
@@ -455,24 +457,57 @@ def _hungarian_on_card(cost, row_mask, col_mask):
     return [t.cpu().numpy() for t in got], [t.numpy() for t in want], n_launch
 
 
+def _steps_match_plain(cost, row_mask, col_mask):
+    """The kernel on the prepared costs against the plain loop: row2col and
+    the search steps of every problem, bit for bit."""
+    pc = prepare(torch.tensor(cost), torch.tensor(row_mask), torch.tensor(col_mask))[0]
+    row2col, steps = solve_n_le_m_cuda(pc.cuda())
+    want_r2c, want_steps = solve_n_le_m_plain_steps(pc)
+    np.testing.assert_array_equal(row2col.cpu().numpy(), want_r2c.numpy())
+    np.testing.assert_array_equal(steps.cpu().numpy(), want_steps.numpy())
+
+
 @pytest.mark.parametrize("kind", ["normal", "ties", "padded", "nan_entry"])
 @pytest.mark.parametrize("B, n, m", [(4, 64, 100), (4, 100, 100), (4, 100, 64), (3, 7, 7),
-                                     (5, 1, 9), (2, 9, 1), (2, 200, 256)])
+                                     (5, 1, 9), (2, 9, 1), (3, 1, 1), (3, 20, 32), (3, 20, 33),
+                                     (2, 40, 128), (2, 40, 129), (2, 200, 256), (1, 256, 256)])
 def test_hungarian_kernel_matches_plain(kind, B, n, m):
-    """The kernel's assignments equal the plain loop's bit for bit: the train
-    step's batch (4 x 64 x 100 and 100 x 100, and 100 x 64 as the mask
-    matcher hands it), square, n < m and n > m, m at the kernel's limit
-    (costs read from global memory, too large for shared), integer costs
-    with ties, padded rows and columns, and a single NaN entry."""
-    got, want, n_launch = _hungarian_on_card(*_hungarian_case(kind, B, n, m, seed=B * n + m))
+    """The kernel's assignments and search steps equal the plain loop's bit
+    for bit: the train step's batch (4 x 64 x 100 and 100 x 100, and 100 x
+    64 as the mask matcher hands it), square, n < m and n > m, m on both
+    sides of every slot count a lane takes (1, 32 / 33, 128 / 129, 256),
+    n = m = 256 (the costs too large for shared memory, read from global),
+    integer costs with ties, padded rows and columns, and a single NaN
+    entry."""
+    case = _hungarian_case(kind, B, n, m, seed=B * n + m)
+    got, want, n_launch = _hungarian_on_card(*case)
     assert n_launch == 1
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+    _steps_match_plain(*case)
+
+
+def test_hungarian_kernel_padded_triplet_batch():
+    """PSGTr's HTriMatcher shape: 6 layers x 2 images of 100 queries against
+    100 GT triplet slots, 3 and 5 of them valid, the rest PAD_COST
+    columns: the longest searches a 100-row problem takes (5,050 steps at
+    most). Assignments and search steps as the plain loop's."""
+    rng = np.random.default_rng(12)
+    cost = (5 * rng.normal(size=(12, 100, 100))).astype(np.float32)
+    col_mask = np.arange(100)[None] < np.array([3, 5] * 6)[:, None]
+    row_mask = np.ones((12, 100), bool)
+    got, want, n_launch = _hungarian_on_card(cost, row_mask, col_mask)
+    assert n_launch == 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    _steps_match_plain(cost, row_mask, col_mask)
 
 
 def test_hungarian_kernel_nan_row_terminates():
     """A whole row of NaN costs has no reference answer (the JAX solver does
-    not return): the kernel returns, and its result is logged, not held."""
+    not return): the kernel returns with the plain loop's assignments and
+    search steps (a degenerate search: the plain walk, then per-row
+    potentials for the rows after it)."""
     cost = np.asarray([[[1.0, 2.0, 3.0], [np.nan] * 3, [3.0, 1.0, 2.0]]], np.float32)
     cost = np.concatenate([cost, np.random.default_rng(0).normal(size=(3, 3, 3))]).astype(
         np.float32)
@@ -480,9 +515,12 @@ def test_hungarian_kernel_nan_row_terminates():
     c, = _on_card(cost)
     row2col, steps = solve_n_le_m_cuda(c)
     torch.cuda.synchronize()
+    want_r2c, want_steps = solve_n_le_m_plain_steps(torch.tensor(cost))
     print("all-NaN row: kernel row2col", row2col.cpu().tolist(), "steps", steps.cpu().tolist(),
-          "plain", batched_hungarian_plain(torch.tensor(cost))[0].tolist())
+          "plain", want_r2c.tolist(), want_steps.tolist())
     assert row2col.shape == (4, 3) and int(steps.max()) <= 3 * 4
+    np.testing.assert_array_equal(row2col.cpu().numpy(), want_r2c.numpy())
+    np.testing.assert_array_equal(steps.cpu().numpy(), want_steps.numpy())
 
 
 @pytest.mark.parametrize("kind", ["normal", "ties", "padded", "nan_entry"])

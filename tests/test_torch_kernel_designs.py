@@ -1,4 +1,4 @@
-"""The designs of two hand-written kernels, modelled in numpy on the CPU.
+"""The designs of the hand-written loop kernels, modelled in numpy on the CPU.
 
 ``csrc/nms.cu`` computes a pairwise suppression bitmask (64-bit words,
 upper triangle only), then sweeps it one 64-box block at a time: a block's
@@ -19,6 +19,15 @@ u and v updated once at its end, the augmenting path walked from the
 winners, the plain walk for a degenerate search), and held equal to the
 plain loop's assignments and search steps, NaN entries and whole NaN rows
 included.
+
+Its short instance (m <= 256) is one warp: lane l owns the contiguous
+columns [(31 - l) S, (32 - l) S), so the first minimum is in the highest
+lane holding the least key; the winner's lane sends the next row with its potential
+(u carried with the column that holds the row, updated step by step); the
+path is walked from a winners list. That search is modelled too and held
+to the plain loop's assignments and search steps for m on both sides of
+each slot count, NaN entries and rows, and the padded 100 x 100 problem
+of 5,050 steps.
 """
 
 import jax.numpy as jnp
@@ -342,3 +351,145 @@ def test_cluster_search_model_matches_plain_loop(kind, K):
         want = hungarian.solve_n_le_m_plain(torch.tensor(cost[None]))[0].numpy()
         np.testing.assert_array_equal(got, want)
         assert steps == hungarian.batched_hungarian.syncs - syncs
+
+
+# --- the short Hungarian instance: one warp, contiguous columns a lane ---
+
+def warp_slots(m):
+    """Columns a lane owns in the short instance: the least of 1, 2, 4, 8
+    with 32 of them covering m (m <= 256)."""
+    return next(s for s in (1, 2, 4, 8) if LANES * s >= m)
+
+
+def lane_first_min(masked, S, lanes=LANES):
+    """Lane l owns columns [(31 - l) S, (32 - l) S), the ghosts past m at
+    1e18 and never available. Each lane's least value (a min tree: -0 and
+    +0 equal) and the first of its slots holding it; then the least
+    order_key over the lanes (one reduction) and the highest lane holding
+    it (a ballot's highest bit), whose columns come first. Returns the
+    column."""
+    m = masked.shape[0]
+    grid = np.full(lanes * S, INF, F32)
+    grid[:m] = masked
+    grid = grid.reshape(lanes, S)  # row r: the columns of lane 31 - r
+    lo = grid.min(axis=1)
+    first = np.argmax(grid == lo[:, None], axis=1)
+    keys = order_key(lo)
+    holders = [lanes - 1 - r for r in np.flatnonzero(keys == keys.min())]
+    r = lanes - 1 - max(holders)
+    return r * S + int(first[r])
+
+
+def warp_solve(cost):
+    """The short instance's search on one (n, m) problem, m <= 256:
+    (row2col, search steps). Between searches p and u live in shared
+    memory (pS by column, uS by row); within one the column owners hold
+    minv, way (as a step, -1 unset), v, p and pu = u[p] in registers, and
+    the winner's lane sends delta, p and pu: the next row and its
+    potential. Per step, off that chain, v -= delta and pu += delta on the
+    used columns, the inserted row's ui += delta. At the end of a search
+    uS takes the visited rows' u, the path is walked from the winners list
+    (the plain walk after a degenerate search: a way never set, a used
+    column won), and the owners reload p and pu. After a degenerate search
+    two columns may hold one row, so from then on u stays per row in uS,
+    every visited row adding each step's delta there."""
+    n, m = cost.shape
+    S = warp_slots(m)
+    pS, uS = np.full(m, -1, np.int64), np.zeros(n, F32)
+    v = np.zeros(m, F32)
+    total, dup = 0, False
+    for i in range(n):
+        p = pS.copy()
+        pu = np.where(p >= 0, uS[np.maximum(p, 0)], F32(0)).astype(F32)
+        minv, way, used = np.full(m, INF, F32), np.full(m, -1, np.int64), np.zeros(m, bool)
+        ui, i0, ui0, steps, wins, visited = F32(0), i, F32(0), 0, [], []
+        while True:
+            if dup:
+                if i0 not in visited:
+                    visited.append(i0)
+                ui0 = uS[i0]
+            avail = ~used
+            cur = ((cost[i0] - ui0).astype(F32) - v).astype(F32)
+            better = avail & (cur < minv)
+            minv = np.where(better, cur, minv).astype(F32)
+            way = np.where(better, steps, way)
+            j1 = lane_first_min(np.where(avail, minv, INF).astype(F32), S)
+            delta = np.where(avail, minv, INF)[j1]
+            wins.append((j1, int(p[j1]), -2 if used[j1] else int(way[j1])))
+            if dup:
+                for r in visited:
+                    uS[r] = F32(uS[r] + delta)
+            else:
+                pu = np.where(used, pu + delta, pu).astype(F32)
+                ui = F32(ui + delta)
+            v = np.where(used, v - delta, v).astype(F32)
+            minv = np.where(avail, minv - delta, minv).astype(F32)
+            used[j1] = True
+            steps += 1
+            i0, ui0 = wins[-1][1], pu[j1]
+            if i0 == -1 or steps > m:
+                break
+        if not dup:
+            held = used & (p >= 0)  # the last winner is free unless the search was cut
+            uS[p[held]] = pu[held]
+            uS[i] = ui
+        if any(w[2] < 0 for w in wins) or steps > m:  # the plain walk
+            j = wins[-1][0]
+            for _ in range(steps):
+                if j == m:
+                    break
+                w = int(way[j])
+                jn = 0 if w < 0 else (m if w == 0 else wins[w - 1][0])
+                pS[j] = i if jn == m else pS[jn]
+                j = jn
+            dup = True
+        else:  # from the winners: p[c_t] = the row step way(c_t) visited
+            t = steps
+            while t:
+                c, _, w = wins[t - 1]
+                pS[c] = i if w == 0 else wins[w - 1][1]
+                t = w
+        total += steps
+    row2col = np.full(n, -1, np.int64)
+    for j in range(m):
+        if pS[j] >= 0:
+            row2col[pS[j]] = max(row2col[pS[j]], j)
+    return row2col, total
+
+
+def warp_case(kind, n, m, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "padded":  # uniform costs, 3 valid columns: prepare() pads the rest
+        cost = torch.tensor(rng.uniform(0, 1, (1, n, m)).astype(F32))
+        return hungarian.prepare(cost, None, torch.arange(m)[None] < 3)[0][0].numpy()
+    cost = (rng.integers(0, 4, (n, m)) if kind == "ties" else rng.normal(size=(n, m))).astype(F32)
+    if kind == "nan_entry":
+        cost[n // 2, m // 3] = np.nan
+    elif kind == "nan_row":
+        cost[n // 2] = np.nan
+    elif kind == "nan_scattered":
+        cost[rng.random((n, m)) < 1 / 3] = np.nan
+    return cost
+
+
+@pytest.mark.parametrize("kind, n, m", [
+    *[(kind, n, m) for kind in ("normal", "ties", "nan_entry", "nan_row", "nan_scattered")
+      for n, m in [(1, 1), (9, 31), (32, 32), (20, 33), (64, 64), (24, 100), (40, 128),
+                   (13, 129), (12, 256)]],
+    ("normal", 100, 100), ("ties", 64, 100), ("padded", 100, 100)])
+def test_warp_search_model_matches_plain_loop(kind, n, m):
+    """The short instance's search (contiguous columns a lane, the highest
+    lane's first minimum, the potentials carried with the columns, the walk
+    from the winners list, per-row potentials after a degenerate search)
+    gives the plain loop's assignments and search steps: m on both sides of
+    every slot count, integer ties, a NaN entry, a whole NaN row, a third
+    of the costs NaN, and 100 x 100 with 3 valid columns, the padded
+    matcher's worst case of 100 * 101 / 2 steps."""
+    cost = warp_case(kind, n, m, seed=5 if kind == "padded" else n * 1000 + m + len(kind))
+    got, steps = warp_solve(cost)
+    syncs = hungarian.batched_hungarian.syncs
+    want, want_steps = hungarian.solve_n_le_m_plain_steps(torch.tensor(cost[None]))
+    np.testing.assert_array_equal(got, want[0].numpy())
+    assert steps == int(want_steps[0]) == hungarian.batched_hungarian.syncs - syncs
+    if kind == "padded":
+        assert steps == 5050
