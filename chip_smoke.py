@@ -77,7 +77,7 @@ result line then):
      800x1344, batch 8, bf16, int4 MSDA): 6 int4 quantize and 6 int4 gather
      launches per forward, no plain call, finite outputs, 100 pairs per
      image; the int4 kernels against their plain versions on this path's
-     inputs; img/s, the stage ms of ``bench --breakdown``, the backbone's
+     inputs; img/s, the spans of ``bench --breakdown``, the backbone's
      kernels by kind and the window attention's share (a profiler scope).
  15. an f32 Swin-B forward (batch 1, TF32 off) through the exact kernel
      against the same forward through the plain MSDA, as phase 4.
@@ -184,7 +184,7 @@ published configs at full width with seeded random weights:
      its ms, search steps, ns a step and cluster size (CTAs a problem);
      and each config's f32 step on a
      seeded batch of 2 split into forward, targets, loss, backward and
-     optimizer (CUDA events), with the card's busy share (profiler).
+     optimizer (the device time of each phase's span under the profiler).
 Phases 29-32 drive the two-stage family (``SceneGraphTwoStage`` with the
 MOTIFS, IMP, GPS-Net and VCTree heads on a frozen Panoptic FPN), built by
 ``build_model`` from the published configs at full width with seeded
@@ -1904,9 +1904,8 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
 
     # where a step's time goes: each config's f32 step (exact MSDA) on
     # bench's seeded batch of 2 with boxes from its stride-4 masks, the
-    # phases by CUDA events at the step's boundaries, the card's busy share
-    # by the profiler
-    from pairnet_torch.bench import device_profile, time_train, train_batch, train_phase_ms
+    # phases by the port's spans under the profiler
+    from pairnet_torch.bench import span_breakdown, time_train, train_batch
     from pairnet_torch.ops.boxes import masks_to_boxes
     from pairnet_torch.train.optim import build_optimizer
     from pairnet_torch.train.trainer import TrainState, make_train_step, to_device
@@ -1920,23 +1919,17 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
         batch["gt_rels"][..., 2].clamp_(1, cfg.num_relation_classes)
         batch["gt_boxes"] = torch.stack([masks_to_boxes(m.float()) * 4 for m in batch["gt_masks"]])
         batch["image_shape"] = torch.tensor([IMG] * 2, dtype=torch.int32, device=dev)
-        events = []
-
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
-
         optimizer = build_optimizer(model)
         state = TrainState(model, optimizer, cfg.num_relation_classes)
         step = make_train_step(model, optimizer, dict(cfg.get("loss", {})),
-                               head_type="CrossHeadBBox", on_phase=mark)
+                               head_type="CrossHeadBBox")
         ms, peak = time_train(step, state, batch, 3)
-        phases = train_phase_ms(events, step, state, batch)
-        prof = device_profile(lambda: step(state, batch))
-        step_split[rel] = {"ms_per_step": ms, "phase_ms": phases, "peak_gib": peak / 2 ** 30,
-                           "device_busy_share": prof["kernel_ms"] / ms,
-                           "kernels_launched": prof["kernels_launched"]}
+        spans = span_breakdown(lambda: step(state, batch), dev)["spans"]
+        step_split[rel] = {"ms_per_step": ms, "peak_gib": peak / 2 ** 30,
+                           "phase_device_ms": {k[len("train."):]: v["device_ms"]
+                                               for k, v in spans.items()
+                                               if k.startswith("train.") and k != "train.step"},
+                           "kernels_launched": spans["train.step"]["kernels"]}
         del model, state, step, optimizer, batch
         torch.cuda.empty_cache()
     bbox_s = time.perf_counter() - t_bbox
@@ -1950,8 +1943,8 @@ def bbox_phases(smi, tf32, record, compare, count_plain_calls, plain_calls):
         f"{hung_long['cluster_ctas']} CTAs), plain loop {hung_long['plain_ms']:.1f} "
         f"ms, bound {hung_long['bound_ms']:.5f} ms; the f32 step on a seeded batch of 2: "
         + ", ".join(f"{p} {v['ms_per_step']:.1f} ms (phases "
-                    f"{ {k: round(x, 2) for k, x in v['phase_ms'].items()} }, busy "
-                    f"{v['device_busy_share']:.3f}, {v['kernels_launched']} kernels)"
+                    f"{ {k: round(x, 2) for k, x in v['phase_device_ms'].items()} } device ms, "
+                    f"{v['kernels_launched']} kernels)"
                     for p, v in step_split.items())
         + f"; phases 25-28 took {bbox_s:.1f} s")
 
@@ -3513,7 +3506,7 @@ def main():
         f"batches ({train_loader_s / n_batches / s_step:.3f} of a step's time)")
 
     # --- (14) serving Pair-Net Swin-B at full width, bf16, int4 ---
-    from pairnet_torch.bench import device_profile, stage_ms
+    from pairnet_torch.bench import span_breakdown
     from pairnet_torch.data import png
     from pairnet_torch.models.backbones.swin import WindowMSA
     from pairnet_torch.models.frameworks.psgtr import build_model
@@ -3563,7 +3556,8 @@ def main():
     del v, lc, wt, codes, scales, out, preds
     captured.clear()
     swin_ms = cuda_ms(torch, lambda: serve(model_s, images_s), 3)
-    swin_stages = stage_ms(model_s, images_s)
+    swin_spans = span_breakdown(lambda: serve(model_s, images_s), dev)["spans"]
+    swin_stages = {k: v["device_ms"] for k, v in swin_spans.items()}
     # the backbone alone: its kernels by the profiler, and the window
     # attention (WindowMSA: qkv, scores, bias and mask, softmax, AV, proj)
     # as a profiler scope
@@ -3575,7 +3569,6 @@ def main():
         with torch.inference_mode():
             model_s.backbone(x_nchw)
 
-    bb_prof = device_profile(backbone, top=10_000)
     orig_wmsa = WindowMSA.forward
 
     def scoped_wmsa(self, *a, **k):
@@ -3595,6 +3588,14 @@ def main():
     # profiler attributes none to it)
     wmsa_ms = max((getattr(e, "device_time_total", 0) or 0 for e in prof.key_averages()
                    if e.key == "swin_window_attention"), default=0) / 1e3 or None
+    by_kernel = collections.defaultdict(lambda: [0.0, 0])  # kernel name -> [ms, launches]
+    for e in prof.events():
+        for k in e.kernels:
+            by_kernel[k.name][0] += k.duration / 1e3
+            by_kernel[k.name][1] += 1
+    top = sorted(((ms, n, name) for name, (ms, n) in by_kernel.items()), reverse=True)
+    bb_prof = {"kernel_ms": sum(r[0] for r in top), "kernels_launched": sum(r[1] for r in top),
+               "top": [{"ms": ms, "calls": n, "name": name[:120]} for ms, n, name in top]}
     kinds = collections.Counter()  # the backbone's kernel ms by kind of kernel
     for row in bb_prof["top"]:
         name = row["name"].lower()

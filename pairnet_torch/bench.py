@@ -9,8 +9,9 @@ counterpart of ``bench.py::bench_train``, which is R-50 only: the full
 train step (forward, on-device targets, losses, backward, clip, AdamW) at
 800x1344, batch 4, bf16 compute over f32 masters, the exact MSDA kernels
 forward and backward, on the seeded batch of ``bench.py`` (24 segments, 40
-relations, 12544 points). Timed with CUDA events; prints one JSON line.
-Needs a GPU::
+relations, 12544 points). Timed with CUDA events; prints one JSON line;
+``--breakdown`` adds the port's spans over one more batch or step
+(:func:`span_breakdown`). Needs a GPU::
 
     python -m pairnet_torch.bench [--model r50|swinb] [--impl int4|exact] [--breakdown]
     python -m pairnet_torch.bench --train [--breakdown]
@@ -32,6 +33,7 @@ from pairnet_torch.flagship import (
     set_deform_impl,
 )
 from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
+from pairnet_torch.utils import tracing
 
 IMAGE_HW, BATCH, ITERS = (800, 1344), 8, 5
 TRAIN_BATCH, TRAIN_ITERS, NUM_POINTS = 4, 3, 12544
@@ -40,9 +42,10 @@ NUM_CLASSES, NUM_RELATIONS = 133, 56
 
 def serve(model, images, num_things: int = 80):
     """Forward + post-processing of every image: (outputs, predictions)."""
-    with torch.inference_mode():
+    with tracing.unit("serve"), torch.inference_mode():
         out = model(images)
-        preds = [pairnet_postprocess(out, b, num_things) for b in range(images.shape[0])]
+        with tracing.span("postprocess"):
+            preds = [pairnet_postprocess(out, b, num_things) for b in range(images.shape[0])]
     return out, preds
 
 
@@ -68,56 +71,49 @@ def time_serving(model, images, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-STAGES = ("backbone", "bbox_head.pixel_decoder", "bbox_head.transformer_decoder", "bbox_head")
-STAGE_NAMES = ("backbone", "pixel_decoder", "mask2former_decoder", "ppn_and_relation",
-               "postprocess")
-
-
-def stage_ms(model, images) -> dict:
-    """Device milliseconds of each stage of one served batch: CUDA events
-    recorded at the stage boundaries (forward hooks), so each span is the
-    device timeline between two boundaries, idle gaps included."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 2)]
-    modules = dict(model.named_modules())
-    handles = [
-        modules[name].register_forward_hook(lambda *_, ev=ev: ev.record())
-        for name, ev in zip(STAGES, events[1:])
-    ]
-    try:
-        torch.cuda.synchronize()
-        events[0].record()
-        serve(model, images)
-        events[-1].record()
-        torch.cuda.synchronize()
-    finally:
-        for h in handles:
-            h.remove()
-    return {n: a.elapsed_time(b) for n, a, b in zip(STAGE_NAMES, events, events[1:])}
-
-
-def device_profile(fn, top: int = 12) -> dict:
-    """Kernel time of one call of ``fn`` from ``torch.profiler`` (CUDA
-    activity only): the sum over all kernels, and the ``top`` kernels by
-    their own device time."""
+def span_breakdown(fn, device) -> dict:
+    """The port's spans (``utils/tracing.py``) in one call of ``fn`` after a
+    warm-up call, from ``torch.profiler`` with the tracer on: ``spans``,
+    for each span its ``calls``, ``host_ms`` (wall time on the host) and,
+    on the card, ``device_ms`` and ``kernels`` (the device time and count of
+    the kernels and copies launched inside it, children included, by time
+    and from any thread: autograd's device thread launches the backward's);
+    ``counts``, the difference of ``tracing.snapshot()`` over the call."""
     from torch.profiler import ProfilerActivity, profile
 
+    cuda = torch.device(device).type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    return {
-        "kernel_ms": sum(r[0] for r in rows),
-        "kernels_launched": sum(r[1] for r in rows),
-        "top": [{"ms": ms, "calls": n, "name": k[:120]} for ms, n, k in rows[:top]],
-    }
+    sync()
+    was = tracing.enabled()
+    tracing.enable(True)
+    before = tracing.snapshot()
+    try:
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            fn()
+            sync()
+    finally:
+        tracing.enable(was)
+    counts = tracing.difference(before, tracing.snapshot())
+    # the host's events (a span also shows on the device's timeline)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end, e.name[len(tracing.PREFIX):])
+             for e in events if e.name.startswith(tracing.PREFIX)]
+    rows = {}
+    for start, end, name in spans:
+        row = rows.setdefault(name, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
+                                     "kernels": 0})
+        row["calls"] += 1
+        row["host_ms"] += (end - start) / 1e3
+    for e in events:
+        if e.kernels:
+            at = e.time_range.start
+            for start, end, name in spans:
+                if start <= at < end:
+                    rows[name]["device_ms"] += sum(k.duration for k in e.kernels) / 1e3
+                    rows[name]["kernels"] += len(e.kernels)
+    return {"spans": rows, "counts": counts}
 
 
 def train_batch(batch_size: int, hw=IMAGE_HW, G: int = 24, R: int = 40, seed: int = 0) -> dict:
@@ -138,7 +134,7 @@ def train_batch(batch_size: int, hw=IMAGE_HW, G: int = 24, R: int = 40, seed: in
     }
 
 
-def train_setup(device, compute_dtype=torch.bfloat16, on_phase=None):
+def train_setup(device, compute_dtype=torch.bfloat16):
     """(model, state, step): the f32 flagship with perturbed deformable
     kernels, the exact MSDA forward and backward, its AdamW state and the
     train step."""
@@ -148,8 +144,7 @@ def train_setup(device, compute_dtype=torch.bfloat16, on_phase=None):
     model = set_deform_impl(perturb_deform_kernels(flagship(device=device)), "exact")
     optimizer = build_optimizer(model)
     state = TrainState(model, optimizer, NUM_RELATIONS)
-    step = make_train_step(model, optimizer, {"num_points": NUM_POINTS}, compute_dtype,
-                           on_phase=on_phase)
+    step = make_train_step(model, optimizer, {"num_points": NUM_POINTS}, compute_dtype)
     return model, state, step
 
 
@@ -168,36 +163,11 @@ def time_train(step, state, batch, iters: int) -> tuple[float, int]:
     return start.elapsed_time(end) / iters, torch.cuda.max_memory_allocated()
 
 
-def train_phase_ms(events: list, step, state, batch) -> dict:
-    """Device milliseconds of each phase of one train step: CUDA events
-    recorded by the step's ``on_phase`` hook into ``events``, after one
-    recorded at its start. Each span is the device timeline between two
-    boundaries, idle gaps included."""
-    from pairnet_torch.train.trainer import PHASES
-
-    torch.cuda.synchronize()
-    events.clear()
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    step(state, batch)
-    torch.cuda.synchronize()
-    marks = [start] + events
-    return {n: a.elapsed_time(b) for n, a, b in zip(PHASES, marks, marks[1:])}
-
-
 def train_main(breakdown: bool) -> dict:
-    from pairnet_torch.ops.hungarian import batched_hungarian
     from pairnet_torch.train.trainer import to_device
 
     device = resolve_device(None)
-    events = []
-
-    def record(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append(ev)
-
-    _, state, step = train_setup(device, on_phase=record)
+    _, state, step = train_setup(device)
     batch = to_device(train_batch(TRAIN_BATCH), device)
     ms, peak = time_train(step, state, batch, TRAIN_ITERS)
     (H, W), B = IMAGE_HW, TRAIN_BATCH
@@ -214,13 +184,7 @@ def train_main(breakdown: bool) -> dict:
         "gpu": gpu_name_and_power_limit(),
     }
     if breakdown:
-        syncs, launches = batched_hungarian.syncs, batched_hungarian.launches
-        result["phase_ms"] = train_phase_ms(events, step, state, batch)
-        result["hungarian_host_syncs_per_step"] = batched_hungarian.syncs - syncs
-        result["hungarian_launches_per_step"] = batched_hungarian.launches - launches
-        prof = device_profile(lambda: step(state, batch))
-        result["device_busy_share"] = prof["kernel_ms"] / ms
-        result["profile"] = prof
+        result.update(span_breakdown(lambda: step(state, batch), device))
     print(json.dumps(result))
     return result
 
@@ -234,8 +198,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--train", action="store_true",
                     help="time the train step instead of serving")
     ap.add_argument("--breakdown", action="store_true",
-                    help="also report device ms per stage (per phase with --train) and the "
-                         "profiler's kernel time")
+                    help="also report the port's spans in one batch (one step with "
+                         "--train) and the counters over it")
     args = ap.parse_args(argv)
     if args.train:
         if args.model != "r50":
@@ -262,10 +226,7 @@ def main(argv=None) -> dict:
         "gpu": gpu_name_and_power_limit(),
     }
     if args.breakdown:
-        result["stage_ms"] = stage_ms(model, images)
-        prof = device_profile(lambda: serve(model, images))
-        result["device_busy_share"] = prof["kernel_ms"] / ms
-        result["profile"] = prof
+        result.update(span_breakdown(lambda: serve(model, images), device))
     print(json.dumps(result))
     return result
 

@@ -35,6 +35,7 @@ from pairnet_torch.models.layers import (
     sine_positional_encoding,
 )
 from pairnet_torch.models.necks.pixel_decoder import MSDeformAttnPixelDecoder, bilinear_resize
+from pairnet_torch.utils import tracing
 
 
 class DecoderLayer(nn.Module):
@@ -177,12 +178,14 @@ class Mask2FormerSegmenter(nn.Module):
     def segment(self, feats):
         """(decoder output dict with the ``mask_features``, the multi-scale
         features, their positional encodings)."""
-        mask_features, ms_feats = self.pixel_decoder(feats)
-        pos = [sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2, dtype=f.dtype,
-                                        device=f.device) for f in ms_feats]
-        dec = self.transformer_decoder(
-            ms_feats, mask_features, pos, self.query_feat.weight, self.query_embed.weight,
-            self.level_embed.weight, self.cls_embed, self.mask_embed,
-        )
+        with tracing.span("pixel_decoder"):
+            mask_features, ms_feats = self.pixel_decoder(feats)
+        with tracing.span("decoder"):
+            pos = [sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2,
+                                            dtype=f.dtype, device=f.device) for f in ms_feats]
+            dec = self.transformer_decoder(
+                ms_feats, mask_features, pos, self.query_feat.weight, self.query_embed.weight,
+                self.level_embed.weight, self.cls_embed, self.mask_embed,
+            )
         dec["mask_features"] = mask_features
         return dec, ms_feats, pos

@@ -12,6 +12,8 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from pairnet_torch.utils import tracing
+
 
 class PSGTr(nn.Module):
     """backbone -> (neck) -> head. The box head's ChannelMapper sits at the
@@ -27,7 +29,8 @@ class PSGTr(nn.Module):
 
     def forward(self, images):
         """images (B, H, W, 3) -> the head's prediction dict."""
-        feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
+        with tracing.span("backbone"):
+            feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
         if hasattr(self, "neck"):
             feats = self.neck(feats)
         return self.bbox_head(feats)

@@ -28,6 +28,7 @@ from torch import nn
 from pairnet_torch.models.decoders.mask2former_decoder import DecoderLayer, Mask2FormerSegmenter
 from pairnet_torch.models.heads.matrix_learner import create_mapper
 from pairnet_torch.models.layers import MLP
+from pairnet_torch.utils import tracing
 
 
 class PairNetHead(Mask2FormerSegmenter):
@@ -68,6 +69,11 @@ class PairNetHead(Mask2FormerSegmenter):
     def forward(self, feats):
         """feats: backbone (C2, C3, C4, C5) NCHW. Returns the prediction dict."""
         dec, _, _ = self.segment(feats)
+        with tracing.span("pair_head"):
+            return self.pair(dec)
+
+    def pair(self, dec):
+        """PPN and Relation Fusion on the decoder's output: the prediction dict."""
         cls_pred, mask_pred, queries = dec["cls"], dec["mask"], dec["queries"]
         B = queries.shape[0]
 

@@ -22,6 +22,8 @@ from typing import NamedTuple
 
 import torch
 
+from pairnet_torch.utils import tracing
+
 INSTANCE_OFFSET = 1000  # mmdet.datasets.coco_panoptic.INSTANCE_OFFSET
 NO_OBJ = 133  # pan_seg id fill when nothing is detected
 
@@ -35,42 +37,43 @@ class PanopticFusionResult(NamedTuple):
 
 def panoptic_fusion(cls_logits, mask_logits, num_things=80, score_thr=0.5, min_area=4):
     """cls_logits (Q, C+1); mask_logits (Q, H, W) at the output resolution."""
-    Q, C1 = cls_logits.shape
-    C = C1 - 1
-    probs = torch.softmax(cls_logits.float(), dim=-1)[:, :-1]
-    scores = probs.amax(dim=-1)
-    labels = probs.argmax(dim=-1)  # first maximum on ties, as jnp.argmax
-    # parity quirk: the reference excludes label == C-1, not the bg column
-    keep0 = (labels != C - 1) & (scores > score_thr)
+    with tracing.span("postprocess.fusion"):
+        Q, C1 = cls_logits.shape
+        C = C1 - 1
+        probs = torch.softmax(cls_logits.float(), dim=-1)[:, :-1]
+        scores = probs.amax(dim=-1)
+        labels = probs.argmax(dim=-1)  # first maximum on ties, as jnp.argmax
+        # parity quirk: the reference excludes label == C-1, not the bg column
+        keep0 = (labels != C - 1) & (scores > score_thr)
 
-    H, W = mask_logits.shape[-2:]
-    flat = mask_logits.reshape(Q, H * W).float()
-    qidx = torch.arange(Q, device=cls_logits.device)
-    is_stuff = labels >= num_things
-    same_class = (labels[:, None] == labels[None, :]) & keep0[None, :]
-    first_same = torch.where(same_class, qidx[None, :], Q).amin(dim=1)
-    redirect = torch.where(is_stuff & keep0 & (first_same < Q), first_same, qidx)
+        H, W = mask_logits.shape[-2:]
+        flat = mask_logits.reshape(Q, H * W).float()
+        qidx = torch.arange(Q, device=cls_logits.device)
+        is_stuff = labels >= num_things
+        same_class = (labels[:, None] == labels[None, :]) & keep0[None, :]
+        first_same = torch.where(same_class, qidx[None, :], Q).amin(dim=1)
+        redirect = torch.where(is_stuff & keep0 & (first_same < Q), first_same, qidx)
 
-    def fuse(keep):
-        logits = torch.where(keep[:, None], flat, float("-inf"))
-        m_id = redirect[logits.argmax(dim=0)]
-        m_id = torch.where(keep.any(), m_id, 0)
-        areas = torch.bincount(m_id, minlength=Q)
-        return m_id, torch.where(keep, areas, 0)
+        def fuse(keep):
+            logits = torch.where(keep[:, None], flat, float("-inf"))
+            m_id = redirect[logits.argmax(dim=0)]
+            m_id = torch.where(keep.any(), m_id, 0)
+            areas = torch.bincount(m_id, minlength=Q)
+            return m_id, torch.where(keep, areas, 0)
 
-    keep = keep0
-    while True:
-        m_id, areas = fuse(keep)
-        tiny = keep & (areas <= min_area)
-        if not bool(tiny.any()):
-            break
-        keep = keep & ~tiny
+        keep = keep0
+        while True:
+            m_id, areas = fuse(keep)
+            tiny = keep & (areas <= min_area)
+            if not bool(tiny.any()):
+                break
+            keep = keep & ~tiny
 
-    pan = torch.where(
-        keep.any(), m_id * INSTANCE_OFFSET + labels[m_id], INSTANCE_OFFSET + NO_OBJ
-    )
-    return PanopticFusionResult(pan_seg=pan.reshape(H, W), keep=keep, labels=labels,
-                                scores=scores)
+        pan = torch.where(
+            keep.any(), m_id * INSTANCE_OFFSET + labels[m_id], INSTANCE_OFFSET + NO_OBJ
+        )
+        return PanopticFusionResult(pan_seg=pan.reshape(H, W), keep=keep, labels=labels,
+                                    scores=scores)
 
 
 class TripletPrediction(NamedTuple):

@@ -34,6 +34,10 @@ a device flag that the host reads, one sync per search step of the
 longest search in the batch, counted in ``batched_hungarian.syncs``. The
 augmenting walk needs none: its path is no longer than the search that
 built it, so it runs that many masked steps.
+
+Each call is the span ``hungarian`` (``utils/tracing.py``); while tracing
+is on, ``batched_hungarian.steps`` sums the search steps of every problem
+solved, on the device.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import functools
 import torch
 
 from pairnet_torch.ops import _build
+from pairnet_torch.utils import tracing
 
 _INF = 1e18
 PAD_COST = 1e6
@@ -183,12 +188,18 @@ def long_cluster(m: int) -> int:
 
 
 def _solve_n_le_m(cost):
-    """The kernel for CUDA tensors, the plain loop for CPU tensors."""
+    """The kernel for CUDA tensors, the plain loop for CPU tensors. While
+    tracing is on, adds the problems' search steps to
+    ``batched_hungarian.steps`` on the device (no host sync)."""
     if cost.device.type == "cpu":
-        return solve_n_le_m_plain(cost)
-    if cost.device.type != "cuda":
+        row2col, steps = solve_n_le_m_plain_steps(cost)
+    elif cost.device.type == "cuda":
+        row2col, steps = solve_n_le_m_cuda(cost)
+    else:
         raise ValueError(f"batched_hungarian: unsupported device {cost.device}")
-    return solve_n_le_m_cuda(cost)[0]
+    if tracing.enabled():
+        batched_hungarian.steps = batched_hungarian.steps + steps.sum(dtype=torch.int64)
+    return row2col
 
 
 def prepare(cost, row_mask=None, col_mask=None):
@@ -241,7 +252,8 @@ def batched_hungarian(cost, row_mask=None, col_mask=None):
     col2row (B, m))``, int64 with -1 for unassigned or invalid. Matches
     ``scipy.optimize.linear_sum_assignment`` on each valid submatrix.
     """
-    return _assign(_solve_n_le_m, cost, row_mask, col_mask)
+    with tracing.span("hungarian"):
+        return _assign(_solve_n_le_m, cost, row_mask, col_mask)
 
 
 def batched_hungarian_plain(cost, row_mask=None, col_mask=None):
@@ -253,3 +265,4 @@ def batched_hungarian_plain(cost, row_mask=None, col_mask=None):
 batched_hungarian.syncs = 0
 batched_hungarian.launches = 0  # both instances
 batched_hungarian.long_launches = 0  # the long instance's
+batched_hungarian.steps = 0  # search steps while tracing, a device tensor once counted

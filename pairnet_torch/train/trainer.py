@@ -16,7 +16,8 @@ parallel over the default process group (``parallel/mesh.py``):
 * :class:`Trainer`: ``fit`` / ``train_epoch`` / ``val_epoch``, checkpoints
   with ``torch.save`` and keep-rotation, ``resume``, the NaN guard
   (``PAIRNET_DEBUG_NANS``) and the profiler knob (``PAIRNET_PROFILE_DIR``:
-  ``torch.profiler`` traces iterations 2-4 of epoch 0 into that directory).
+  ``torch.profiler`` traces iterations 2-4 of epoch 0 into that directory,
+  with the port's spans on: ``utils/tracing.py``).
 
 Randomness: each step draws two seeds from the state's generator, one for
 the mask-cost sampling points and one for the device's default generator,
@@ -56,6 +57,7 @@ from pairnet_torch.parallel.mesh import (
 )
 from pairnet_torch.train.dispatch import TWO_STAGE, get_loss_fn
 from pairnet_torch.train.optim import GRAD_CLIP, clip_by_global_norm, set_lr
+from pairnet_torch.utils import tracing
 
 logger = logging.getLogger("pairnet_torch")
 SEED = 10086
@@ -166,8 +168,10 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
     ``gt_valid``, ``gt_rels``, ``rel_valid``). ``loss_kwargs`` are the
     config's ``loss`` options. ``schedule`` maps the step to the base lr;
     without it the optimizer's lr stays as built. ``on_phase(name)`` is
-    called at the end of each of ``PHASES`` (a profiling hook: the bench
-    records a CUDA event there). ``grad_clip`` is the max global norm.
+    called at the end of each of ``PHASES`` (a profiling hook: the
+    benchmark records a CUDA event there). The step is the unit span
+    ``train.step``, each phase a span ``train.<phase>`` of it
+    (``utils/tracing.py``). ``grad_clip`` is the max global norm.
     ``head_type`` picks the loss (``dispatch.get_loss_fn``); the DETR heads'
     losses also read the batch's ``gt_boxes`` and ``image_shape``.
     With a process group, ``batch`` is this rank's rows of the global batch
@@ -180,36 +184,45 @@ def make_train_step(model, optimizer, loss_kwargs: dict | None = None, compute_d
     rank = world_info()[0]
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        batch = _upcast_masks(batch)
-        image = batch["image"]
-        points_seed, dropout_seed = _draw_seeds(state.generator, 2)
-        points = _rank_points(image.shape[0], num_points, points_seed, image.device)
-        dropout_seed += rank  # ranks draw their own dropout masks
-        if schedule is not None:
-            set_lr(optimizer, schedule(state.step))
-        model.train()
-        devices = [image.device] if image.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices, device_type="cuda"):
-            if devices:
-                with torch.cuda.device(image.device):
-                    torch.cuda.manual_seed(dropout_seed)
-            else:
-                torch.random.default_generator.manual_seed(dropout_seed)
-            out = forward(model, model_inputs(batch, head_type), compute_dtype)
+        with tracing.unit("train.step"):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        with tracing.span("train.forward"):
+            batch = _upcast_masks(batch)
+            image = batch["image"]
+            points_seed, dropout_seed = _draw_seeds(state.generator, 2)
+            points = _rank_points(image.shape[0], num_points, points_seed, image.device)
+            dropout_seed += rank  # ranks draw their own dropout masks
+            if schedule is not None:
+                set_lr(optimizer, schedule(state.step))
+            model.train()
+            devices = [image.device] if image.device.type == "cuda" else []
+            with torch.random.fork_rng(devices=devices, device_type="cuda"):
+                if devices:
+                    with torch.cuda.device(image.device):
+                        torch.cuda.manual_seed(dropout_seed)
+                else:
+                    torch.random.default_generator.manual_seed(dropout_seed)
+                out = forward(model, model_inputs(batch, head_type), compute_dtype)
         mark("forward")
-        targets = pairnet_targets(out, batch, points) if pairnet else None
+        with tracing.span("train.targets"):
+            targets = pairnet_targets(out, batch, points) if pairnet else None
         mark("targets")
-        losses, new_cum = loss_fn(out, batch, points, state.cum_samples, targets=targets)
+        with tracing.span("train.loss"):
+            losses, new_cum = loss_fn(out, batch, points, state.cum_samples, targets=targets)
         mark("loss")
-        optimizer.zero_grad(set_to_none=False)
-        losses["loss_total"].backward()
+        with tracing.span("train.backward"):
+            optimizer.zero_grad(set_to_none=False)
+            losses["loss_total"].backward()
         mark("backward")
-        for p in params:  # a parameter the loss never reads has gradient 0, as in JAX
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        all_reduce_coalesced([p.grad for p in params])  # the global batch's gradient
-        grad_norm = clip_by_global_norm([p.grad for p in params], grad_clip)
-        optimizer.step()
+        with tracing.span("train.optimizer"):
+            for p in params:  # a parameter the loss never reads has gradient 0, as in JAX
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_coalesced([p.grad for p in params])  # the global batch's gradient
+            grad_norm = clip_by_global_norm([p.grad for p in params], grad_clip)
+            optimizer.step()
         mark("optimizer")
         state.cum_samples = new_cum
         state.step += 1
@@ -329,6 +342,7 @@ class Trainer:
         if self.state.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
+        tracing.enable(True)  # the traced iterations name the port's layers
         prof.start()
         return prof
 
@@ -336,6 +350,7 @@ class Trainer:
         if self.state.device.type == "cuda":
             torch.cuda.synchronize(self.state.device)
         prof.stop()
+        tracing.enable(False)
         path = Path(profile_dir) / f"trace_epoch{epoch}_iter{first}-{last}.json"
         path.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(path))

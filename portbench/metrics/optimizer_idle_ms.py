@@ -1,0 +1,7 @@
+"""Device-idle ms a unit inside the program's ``pairnet.train.optimizer`` spans."""
+
+from portbench import program
+
+
+def read(rec):
+    return program.idle_ms(rec, "train.optimizer")

@@ -24,6 +24,7 @@ from pairnet_torch.tools import test as test_cli  # noqa: E402
 from pairnet_torch.tools import train as train_cli  # noqa: E402
 from pairnet_torch.train import trainer as trainer_mod  # noqa: E402
 from pairnet_torch.train.dispatch import get_loss_fn  # noqa: E402
+from pairnet_torch.utils import tracing  # noqa: E402
 from pairnet_torch.utils.from_jax import (  # noqa: E402
     _leaves,
     load_jax_variables,
@@ -115,7 +116,8 @@ def test_train_cli_load_from(tmp_path, caplog):
 
 def test_profiler_knob_writes_a_trace(tmp_path, monkeypatch):
     """``PAIRNET_PROFILE_DIR`` on a split of 5 steps per epoch: iterations
-    2-4 of epoch 0 are traced into that directory."""
+    2-4 of epoch 0 are traced into that directory, with the port's spans
+    on for them (one ``pairnet.train.step`` each) and off after."""
     trace_dir = tmp_path / "trace"
     monkeypatch.setenv("PAIRNET_PROFILE_DIR", str(trace_dir))
     out = _train(tmp_path / "work", "--max-steps", "5", "--cfg-options",
@@ -125,6 +127,9 @@ def test_profiler_knob_writes_a_trace(tmp_path, monkeypatch):
     assert trace.is_file()
     events = json.loads(trace.read_text())["traceEvents"]
     assert len(events) > 0
+    names = [e.get("name") for e in events if e.get("ph") == "X"]
+    assert names.count("pairnet.train.step") == 3 and "pairnet.backbone" in names
+    assert not tracing.enabled()
 
 
 def test_loss_dispatch():
