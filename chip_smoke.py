@@ -2577,6 +2577,40 @@ def main():
     log(f"[0] gpu: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {device_kind}")
     wrappers = {"deform_attn_exact": deform_attn_exact, "int4_quantize": int4_quantize,
                 "int4_gather": int4_gather}
+    served_names = {"deform_attn_exact": ("exact_kernel",),
+                    "int4_quantize": ("absmax_kernel", "quantize_kernel"),
+                    "int4_gather": ("gather_kernel",)}
+
+    def served_kernels(fn, expect, windows=3):
+        """The MSDA calls that one call of ``fn`` runs on the card, by the
+        profiler's names of the port's kernels (``served_names``: each
+        call's kernels, as many of each): a serving forward replays CUDA
+        graphs, whose kernels launch without their wrappers, so the
+        wrappers' counts read 0 there.
+        A window whose counts differ from ``expect`` is profiled again, up to
+        ``windows`` times (the profiler has lost records of a call)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(windows):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            # the exported trace holds every kernel record; ``prof.events()``
+            # may leave out those that no operator launched (a graph's)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                             if str(e.get("cat", "")).lower() == "kernel"]
+            got = {}
+            for call, kernels in served_names.items():
+                n = {sum(f"(anonymous namespace)::{k}<" in name for name in names)
+                     for k in kernels}
+                got[call] = n.pop() if len(n) == 1 else f"uneven {sorted(n)}"
+            if got == expect:
+                break
+        return got
 
     # --- (1) build ---
     t0 = time.perf_counter()
@@ -2696,17 +2730,24 @@ def main():
     set_deform_impl(model, "int4")
     g = torch.Generator(device=dev).manual_seed(1)
     images = torch.randn((B, *IMG, 3), generator=g, device=dev).to(torch.bfloat16)
-    layers_mod.ms_deform_attn = capturing
-    serve(model, images)  # warm-up; captures the first encoder layer's inputs
-    layers_mod.ms_deform_attn = orig_msda
-    torch.cuda.synchronize()
+    # the first request captures the forward's CUDA graphs (``bench.serve``),
+    # running each segment's Python twice: its warm-up and its capture
+    expect_launches = {"deform_attn_exact": 0, "int4_quantize": 6, "int4_gather": 6}
     for fn in wrappers.values():
         fn.launches = 0
-    out, preds = serve(model, images)
+    layers_mod.ms_deform_attn = capturing
+    serve(model, images)  # captures the first encoder layer's inputs
+    layers_mod.ms_deform_attn = orig_msda
     torch.cuda.synchronize()
-    serving_launches = {n: fn.launches for n, fn in wrappers.items()}
-    check(serving_launches == {"deform_attn_exact": 0, "int4_quantize": 6, "int4_gather": 6},
-          f"serving launches {serving_launches}")
+    capture_launches = {n: fn.launches for n, fn in wrappers.items()}
+    check(capture_launches == {n: 2 * k for n, k in expect_launches.items()},
+          f"capturing request's launches {capture_launches}")
+    replayed = []
+    serving_launches = served_kernels(lambda: replayed.append(serve(model, images)),
+                                      expect_launches)
+    out, preds = replayed[-1]
+    del replayed
+    check(serving_launches == expect_launches, f"serving launches {serving_launches}")
     expect = {"cls": (B, 100, 134), "mask": (B, 100, h4, w4), "rel": (B, 100, 56),
               "importance": (B, 100, 100), "sub_pos": (B, 100), "obj_pos": (B, 100),
               "queries": (B, 100, 256)}
@@ -2718,7 +2759,8 @@ def main():
         check(tuple(pr.pan_seg.shape) == (h4, w4) and tuple(pr.labels.shape) == (200,),
               "prediction shapes")
         check(bool(((pr.r_scores >= 0) & (pr.r_scores <= 1)).all()), "r_scores in [0, 1]")
-    log(f"[3] serving batch {B} bf16 int4 at {IMG[0]}x{IMG[1]}: launches {serving_launches}; "
+    log(f"[3] serving batch {B} bf16 int4 at {IMG[0]}x{IMG[1]}: launches {serving_launches} "
+        f"(the replay's kernels; the capturing request's wrappers {capture_launches}); "
         f"outputs finite with the expected shapes; {len(preds)} predictions; kept segments "
         f"per image {[int(torch.unique(pr.pan_seg).numel()) for pr in preds]}")
 
@@ -3517,6 +3559,11 @@ def main():
                 "deform_attn_exact": deform_attn_exact.launches, "plain": dict(plain_calls)}
 
     int4_serving = {"int4_quantize": 6, "int4_gather": 6, "deform_attn_exact": 0, "plain": {}}
+    # a served forward's kernels, read from the card at a replay, and the
+    # wrappers' counts at the capturing request (each segment warmed up,
+    # then captured), where the plain versions would be called
+    int4_replay = {k: v for k, v in int4_serving.items() if k != "plain"}
+    int4_capture = {**{k: 2 * v for k, v in int4_replay.items()}, "plain": {}}
 
     def check_served(out, preds, n, what):
         for key, shape in {"cls": (n, 100, 134), "rel": (n, 100, 56), "importance": (n, 100, 100),
@@ -3534,16 +3581,20 @@ def main():
     set_deform_impl(model_s, "int4")
     g = torch.Generator(device=dev).manual_seed(1)
     images_s = torch.randn((B, *IMG, 3), generator=g, device=dev).to(torch.bfloat16)
-    layers_mod.ms_deform_attn = capturing
-    serve(model_s, images_s)  # warm-up; captures the first encoder layer's inputs
-    layers_mod.ms_deform_attn = orig_msda
-    torch.cuda.synchronize()
     reset_launches()
     count_plain_calls(True)
-    out, preds = serve(model_s, images_s)
+    layers_mod.ms_deform_attn = capturing
+    serve(model_s, images_s)  # captures the graphs and the first encoder layer's inputs
+    layers_mod.ms_deform_attn = orig_msda
     torch.cuda.synchronize()
     count_plain_calls(False)
-    swin_serving_launches = int4_counts()
+    swin_capture = int4_counts()
+    check(swin_capture == int4_capture, f"Swin-B capturing request's launches {swin_capture}")
+    replayed = []
+    swin_serving_launches = {**served_kernels(lambda: replayed.append(serve(model_s, images_s)),
+                                              int4_replay), "plain": swin_capture["plain"]}
+    out, preds = replayed[-1]
+    del replayed
     check(swin_serving_launches == int4_serving,
           f"Swin-B serving launches {swin_serving_launches}")
     check_served(out, preds, B, "Swin-B serving")
@@ -3755,14 +3806,18 @@ def main():
         hcfg = apply_overrides(load_config(path), opts)
         model_h = perturb_deform_kernels(build_model(hcfg.model, device=dev).to(torch.bfloat16))
         set_deform_impl(model_h, "int4")
-        serve(model_h, images2)  # warm-up
-        torch.cuda.synchronize()
         reset_launches()
         count_plain_calls(True)
-        out, preds = serve(model_h, images2)
+        serve(model_h, images2)  # captures the graphs
         torch.cuda.synchronize()
         count_plain_calls(False)
-        counts = int4_counts()
+        capture = int4_counts()
+        check(capture == int4_capture, f"{name} head capturing request's launches {capture}")
+        replayed = []
+        counts = {**served_kernels(lambda: replayed.append(serve(model_h, images2)),
+                                   int4_replay), "plain": capture["plain"]}
+        out, preds = replayed[-1]
+        del replayed
         check(counts == int4_serving, f"{name} head serving launches {counts}")
         check_served(out, preds, 2, f"{name} head")
         heads[name] = {"config": os.path.relpath(path), "cfg_options": opts, "launches": counts,

@@ -21,7 +21,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -33,17 +35,30 @@ from pairnet_torch.flagship import (
     set_deform_impl,
 )
 from pairnet_torch.models.heads.pairnet_inference import pairnet_postprocess
-from pairnet_torch.utils import tracing
+from pairnet_torch.utils import serve_graph, tracing
 
 IMAGE_HW, BATCH, ITERS = (800, 1344), 8, 5
+DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # the profiler's device categories
 TRAIN_BATCH, TRAIN_ITERS, NUM_POINTS = 4, 3, 12544
 NUM_CLASSES, NUM_RELATIONS = 133, 56
 
 
 def serve(model, images, num_things: int = 80):
-    """Forward + post-processing of every image: (outputs, predictions)."""
+    """Forward + post-processing of every image: (outputs, predictions).
+
+    The forward runs as replays of CUDA graphs where the images are on CUDA
+    and the model is Pair-Net in eval mode (``utils/serve_graph.py``),
+    captured at the first request of each input shape, dtype, device and
+    MSDA implementation; elsewhere eagerly. The results are those of the
+    eager forward, bit for bit, and the outputs returned are the request's
+    own. The graphs are cut at module boundaries, so the pre-hooks and
+    forward hooks of these modules run on every request: the model,
+    ``backbone``, ``bbox_head``, ``bbox_head.pixel_decoder``,
+    ``bbox_head.transformer_decoder`` and each of its ``layers``. A hook on
+    a module inside them runs only at a capture. The post-processing is
+    eager."""
     with tracing.unit("serve"), torch.inference_mode():
-        out = model(images)
+        out = serve_graph.forward(model, images)
         with tracing.span("postprocess"):
             preds = [pairnet_postprocess(out, b, num_things) for b in range(images.shape[0])]
     return out, preds
@@ -96,23 +111,36 @@ def span_breakdown(fn, device) -> dict:
     finally:
         tracing.enable(was)
     counts = tracing.difference(before, tracing.snapshot())
-    # the host's events (a span also shows on the device's timeline)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    spans = [(e.time_range.start, e.time_range.end, e.name[len(tracing.PREFIX):])
-             for e in events if e.name.startswith(tracing.PREFIX)]
+    # a device record goes to the spans that held the runtime call that
+    # launched it (by correlation id), as in portbench/program.py: a
+    # replayed CUDA graph's kernels have no operator of their own to hang from
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    spans, launched, records = [], {}, []
+    for e in events:
+        cat, name, start = str(e.get("cat", "")).lower(), e.get("name", ""), float(e["ts"])
+        corr = (e.get("args") or {}).get("correlation")
+        if cat == "user_annotation" and name.startswith(tracing.PREFIX):
+            spans.append((start, start + float(e["dur"]), name[len(tracing.PREFIX):]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            launched[corr] = start
+        elif cat in DEVICE_RECORDS:
+            records.append((float(e["dur"]), corr))
     rows = {}
     for start, end, name in spans:
         row = rows.setdefault(name, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
                                      "kernels": 0})
         row["calls"] += 1
         row["host_ms"] += (end - start) / 1e3
-    for e in events:
-        if e.kernels:
-            at = e.time_range.start
-            for start, end, name in spans:
-                if start <= at < end:
-                    rows[name]["device_ms"] += sum(k.duration for k in e.kernels) / 1e3
-                    rows[name]["kernels"] += len(e.kernels)
+    for dur, corr in records:
+        at = launched.get(corr)
+        for start, end, name in spans:
+            if at is not None and start <= at < end:
+                rows[name]["device_ms"] += dur / 1e3
+                rows[name]["kernels"] += 1
     return {"spans": rows, "counts": counts}
 
 

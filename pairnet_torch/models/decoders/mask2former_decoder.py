@@ -23,6 +23,8 @@ so each head takes the route JAX takes for it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
@@ -108,7 +110,34 @@ class Mask2FormerDecoder(nn.Module):
                 query_embed, level_embed, cls_embed, mask_embed):
         """multi_scale_feats: low -> high resolution (B, C, h, w); pos_encodings
         (h, w, C) each; mask_features (B, C, h4, w4). The last five arguments
-        are the owning head's tables and layers."""
+        are the owning head's tables and layers. The work between the layers
+        is in methods (the start with layer 0's mask, each later layer's
+        mask, the head), where a graphed serving forward cuts it
+        (``utils/serve_graph.py``)."""
+        ctx, query, attn_mask, _ = self._start(
+            multi_scale_feats, mask_features, pos_encodings, query_feat, query_embed,
+            level_embed, cls_embed, mask_embed)
+        n = len(ctx.shapes)
+        history, intermediates = [], []
+        for i, layer in enumerate(self.layers):
+            if i:
+                attn_mask, head = self._mask(ctx, query, i, cls_embed, mask_embed)
+                if head is not None:  # the reference route's head after layer i - 1
+                    intermediates.append(head)
+            query = layer(query, ctx.query_pos, ctx.memories[i % n], ctx.memory_pos[i % n],
+                          attn_mask[:, None])
+            history.append(query)
+        cls_pred, mask_pred, query_history = self._head(ctx, query, history, cls_embed,
+                                                        mask_embed)
+        if self.return_intermediate:
+            intermediates.append((cls_pred, mask_pred))
+        return {"cls": cls_pred, "mask": mask_pred, "queries": query,
+                "query_history": query_history, "intermediates": intermediates}
+
+    def _start(self, multi_scale_feats, mask_features, pos_encodings, query_feat, query_embed,
+               level_embed, cls_embed, mask_embed):
+        """(what every layer reads, the first query, layer 0's mask and head
+        as :meth:`_mask` gives them)."""
         B, C = mask_features.shape[:2]
         memories, memory_pos, shapes = [], [], []
         for lvl, f in enumerate(multi_scale_feats):
@@ -117,38 +146,53 @@ class Mask2FormerDecoder(nn.Module):
             memory_pos.append(pos_encodings[lvl].reshape(1, h * w, C))
             shapes.append((h, w))
         query = query_feat[None].expand(B, -1, -1)
-        query_pos = query_embed[None]
-
         mf = mask_features.float()
-        n = len(shapes)
+        mf_small = None if self.return_intermediate else [
+            bilinear_resize(mf, hw).flatten(2).transpose(1, 2) for hw in shapes]
+        ctx = _Context(memories, memory_pos, query_embed[None], mf, mf_small, shapes)
+        return (ctx, query, *self._mask(ctx, query, 0, cls_embed, mask_embed))
 
-        def head(q, lvl):  # the reference route's prediction head, masks at level lvl
-            return self.forward_head(q, mf, shapes[lvl % n], cls_embed, mask_embed)
-
+    def _mask(self, ctx, query, i, cls_embed, mask_embed):
+        """Layer ``i``'s attention mask from ``query``, its rows masked
+        everywhere cleared (they attend everywhere), and on the reference
+        route the prediction head's (cls, mask) on ``query``, else None."""
+        lvl = i % len(ctx.shapes)
         if self.return_intermediate:
-            cls_pred, mask_pred, attn_mask = head(query, 0)
+            cls_pred, mask_pred, attn_mask = self.forward_head(query, ctx.mf, ctx.shapes[lvl],
+                                                               cls_embed, mask_embed)
+            head = (cls_pred, mask_pred)
         else:
-            mf_small = [bilinear_resize(mf, hw).flatten(2).transpose(1, 2) for hw in shapes]
-            attn_mask = self.attn_mask_small(query, mf_small[0], mask_embed)
-        history, intermediates = [], []
-        for i, layer in enumerate(self.layers):
-            all_masked = attn_mask.all(dim=-1, keepdim=True)
-            attn_mask = attn_mask & ~all_masked
-            query = layer(query, query_pos, memories[i % n], memory_pos[i % n],
-                          attn_mask[:, None])
-            if self.return_intermediate:
-                cls_pred, mask_pred, attn_mask = head(query, i + 1)
-                intermediates.append((cls_pred, mask_pred))
-            elif i + 1 < len(self.layers):
-                attn_mask = self.attn_mask_small(query, mf_small[(i + 1) % n], mask_embed)
-            history.append(query)
+            attn_mask = self.attn_mask_small(query, ctx.mf_small[lvl], mask_embed)
+            head = None
+        all_masked = attn_mask.all(dim=-1, keepdim=True)
+        return attn_mask & ~all_masked, head
 
-        if not self.return_intermediate:
+    def _head(self, ctx, query, history, cls_embed, mask_embed):
+        """(cls, full-resolution mask logits, the layers' queries stacked)
+        after the last layer."""
+        if self.return_intermediate:
+            cls_pred, mask_pred, _ = self.forward_head(
+                query, ctx.mf, ctx.shapes[len(self.layers) % len(ctx.shapes)], cls_embed,
+                mask_embed)
+        else:
             out = _layer_norm_f32(query, self.post_norm)
             cls_pred = linear_f32(out, cls_embed)
-            mask_pred = torch.einsum("bqc,bchw->bqhw", _mlp_f32(out, mask_embed), mf)
-        return {"cls": cls_pred, "mask": mask_pred, "queries": query,
-                "query_history": torch.stack(history), "intermediates": intermediates}
+            mask_pred = torch.einsum("bqc,bchw->bqhw", _mlp_f32(out, mask_embed), ctx.mf)
+        return cls_pred, mask_pred, torch.stack(history)
+
+
+class _Context(NamedTuple):
+    """What every decoder layer reads: the memories and their positional
+    encodings a level, the query positions, the mask features in f32 (and,
+    on the default route, resized to each level, tokens last), the levels'
+    (h, w)."""
+
+    memories: list
+    memory_pos: list
+    query_pos: torch.Tensor
+    mf: torch.Tensor
+    mf_small: list | None
+    shapes: list
 
 
 class Mask2FormerSegmenter(nn.Module):
@@ -181,11 +225,15 @@ class Mask2FormerSegmenter(nn.Module):
         with tracing.span("pixel_decoder"):
             mask_features, ms_feats = self.pixel_decoder(feats)
         with tracing.span("decoder"):
-            pos = [sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2,
-                                            dtype=f.dtype, device=f.device) for f in ms_feats]
+            pos = self.positions(ms_feats)
             dec = self.transformer_decoder(
                 ms_feats, mask_features, pos, self.query_feat.weight, self.query_embed.weight,
                 self.level_embed.weight, self.cls_embed, self.mask_embed,
             )
         dec["mask_features"] = mask_features
         return dec, ms_feats, pos
+
+    def positions(self, ms_feats):
+        """The sine positional encoding of each (B, C, h, w) map, (h, w, C)."""
+        return [sine_positional_encoding(f.shape[2], f.shape[3], f.shape[1] // 2, dtype=f.dtype,
+                                         device=f.device) for f in ms_feats]

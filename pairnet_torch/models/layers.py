@@ -9,6 +9,7 @@ with ``load_state_dict``. Norm epsilons follow the JAX package (flax's
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -262,13 +263,22 @@ class MSDeformAttention(nn.Module):
             # division in the offsets' type as JAX divides by a Python int
             locs = ref[..., :2].float() + (offsets / P).float() * ref[..., 2:].float() * 0.5
         else:
-            normalizer = torch.tensor(
-                [[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=query.device
-            )  # (L, 2) as (w, h)
+            shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+            normalizer = level_sizes(shapes, query.device)
             locs = ref.float() + offsets.float() / normalizer[None, None, None, :, None, :]
         out = ms_deform_attn(v, spatial_shapes, locs, attn, impl=self.impl, bwd=self.bwd)
         out = self.output_proj(out.to(identity.dtype))
         return identity + out
+
+
+# made outside inference mode, so that a training forward after a served
+# one can save it for its backward
+@functools.lru_cache(maxsize=64)
+@torch.inference_mode(False)
+def level_sizes(spatial_shapes: tuple[tuple[int, int], ...], device) -> torch.Tensor:
+    """(L, 2) f32 (w, h) of each level, made once per levels and device: a
+    host-to-device copy synchronises, and a CUDA graph capture refuses it."""
+    return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32, device=device)
 
 
 def encoder_reference_points(spatial_shapes, device=None):

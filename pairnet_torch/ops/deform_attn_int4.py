@@ -94,14 +94,23 @@ def int4_gather_plain(codes, scales, spatial_shapes, sampling_locations, attenti
 
 
 _workspaces: dict = {}  # (device index, stream) -> the quantize's u32 workspace
+_outgrown: list = []  # the workspaces larger ones replaced, never freed
 
 
 def quantize_workspace(device, stream: int, n: int):
     """The quantize's workspace on ``device`` for calls on ``stream``: at
     least ``n`` int32 entries, zeroed when allocated (once, or when a call
-    needs more) and left zero by every call, so a call launches no fill."""
+    needs more) and left zero by every call, so a call launches no fill.
+    One that a larger one replaces is kept, since a CUDA graph captured
+    with it still reads it; a capture on ``stream`` may not allocate one,
+    so warm up first."""
     ws = _workspaces.get((device.index, stream))
     if ws is None or ws.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("quantize: no workspace of this size for the capturing "
+                               "stream; run the call once on that stream before capture")
+        if ws is not None:
+            _outgrown.append(ws)
         ws = torch.zeros(n, dtype=torch.int32, device=device)
         _workspaces[(device.index, stream)] = ws
     return ws

@@ -9,9 +9,10 @@ causes, on one clock; without one it costs RecordFunction's bookkeeping.
 step); while on, it also adds the process CPU time over the span, every
 thread's (the autograd engine's launches the backward), to the unit's total.
 
-``snapshot()`` reads the totals by name: the units' and the counters that
+``snapshot()`` reads the totals by name: the units', the counters that
 the ops keep on their functions (``.launches``, ``.long_launches``,
-``.syncs``, ``.steps``). ``enable`` is the only switch.
+``.syncs``, ``.steps``) and the program's own (``COUNTS``, counted with
+``count``, on or off). ``enable`` is the only switch.
 """
 
 from __future__ import annotations
@@ -26,10 +27,14 @@ import torch
 
 PREFIX = "pairnet."
 COUNTERS = ("launches", "long_launches", "syncs", "steps")
+# serving forwards that captured CUDA graphs, replayed them, or ran without
+# them (``utils/serve_graph.py``)
+COUNTS = ("serve_graph.captures", "serve_graph.replays", "serve_graph.eager")
 
 _NULL = contextlib.nullcontext()
 _on = False
 _units: dict[str, list[int]] = {}  # unit name -> [units, process CPU ns]
+_counts = dict.fromkeys(COUNTS, 0)
 
 
 def enable(on: bool) -> None:
@@ -68,15 +73,22 @@ def _unit(name: str):
             total[1] += time.process_time_ns() - t0
 
 
+def count(name: str) -> None:
+    """Add one to the program's count ``name`` (one of ``COUNTS``)."""
+    _counts[name] += 1
+
+
 def snapshot() -> dict[str, int]:
     """The totals so far: ``<unit>.units`` and ``<unit>.cpu_ns`` of each
-    unit, and ``<function>.<counter>`` of every function of the port's ops
-    modules that keeps one (``<function>.<counter>.<instance>`` for a count
-    kept per kernel instance). A count kept on the device (the Hungarian's
-    ``steps``) is read to the host here: read it outside a timed window."""
+    unit, the program's ``COUNTS``, and ``<function>.<counter>`` of every
+    function of the port's ops modules that keeps one
+    (``<function>.<counter>.<instance>`` for a count kept per kernel
+    instance). A count kept on the device (the Hungarian's ``steps``) is
+    read to the host here: read it outside a timed window."""
     out = {}
     for name, (n, ns) in _units.items():
         out[f"{name}.units"], out[f"{name}.cpu_ns"] = n, ns
+    out.update(_counts)
     for mod_name, mod in list(sys.modules.items()):
         if not mod_name.startswith("pairnet_torch.ops.") or mod is None:
             continue
