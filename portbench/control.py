@@ -1,18 +1,19 @@
 """The controls of the cells' check: the plain reference put in the
 system's place, with the operands of every product rounded to fp8 (e4m3,
 one scale a tensor: the step below the configuration's bf16), or for
-training a planted fault instead. The cell's own check (its kind's
-``reference_check``, the limits of the configuration, ``Record.correct``)
-then judges it as it judges the system: the float32 reference replays the
-stand-in's decisions. Run on the card at the cell's own size::
+training a planted fault instead. The cell's own check (its family's or
+its kind's ``reference_check``, the limits of the configuration,
+``Record.correct``) then judges it as it judges the system: the float32
+reference replays the stand-in's decisions. Run on the card at the cell's
+own size::
 
     python3 -m portbench.control --workload pairnet_r50.serve_b8 --seeds 11 12 13
 
 It prints one JSON line a seed: ``correct`` (which a control has to read
-false) and each number beside its limit. A serving stand-in serves the
-first request of the seed's pool; its post-processing is the reference's
-own, so its predictions are not compared. The benchmark's runs do not run
-it.
+false) and each number beside its limit. A serving stand-in (the family's
+``stand_in``) serves the first request of the seed's pool; its
+post-processing is the reference's own, so its predictions are not
+compared. The benchmark's runs do not run it.
 """
 
 from __future__ import annotations
@@ -41,25 +42,14 @@ def serve_record(cell, seed: int, device, rnd=fp8) -> Record:
     import torch
 
     from portbench.kinds import serve
-    from portbench.reference import init, pairnet
 
     cfg, mix = cell.config, cell.mix
-    model_cfg = cfg["model"]
     dtype = getattr(torch, cfg["serve"]["dtype"])
     dev = Device(device)
     pool = serve.image_pool(seed, 1, int(mix["batch"]), tuple(cfg["image_hw"]), dtype, dev)
     images = [img[None] for img in pool[0].to(dev.device)]
-    kept = {}
-    with no_tf32(), torch.no_grad():
-        P = {k: v.float() for k, v in
-             init.make_weights(pairnet.param_specs(model_cfg), seed, dev.device, dtype).items()}
-        for b, img in enumerate(images):
-            record = []
-            out = pairnet.forward(P, img.float(), model_cfg, rnd=rnd, record=record)
-            kept[b] = {"out": out, "got": None, "masks": [m for m, _ in record],
-                       "mask_features": out["mask_features"]}
-        del P
-    return Record(checks=serve.reference_check(cell, seed, dev, kept, images))
+    kept = cell.family.stand_in(cell, seed, dev, images, rnd)
+    return Record(checks=cell.family.reference_check(cell, seed, dev, kept, images))
 
 
 def swapped(cost, valid=None):

@@ -27,6 +27,7 @@ class Record:
     trace: object = None  # trace.TraceSummary of the traced window, or None
     trace_units: int = 0  # units of work inside the traced window
     counts: dict = field(default_factory=dict)  # per-layer counts from shapes (e.g. MSDA bounds)
+    program_counts: dict = field(default_factory=dict)  # traced runs: the port's counters' growth, tracer on
     checks: dict = field(default_factory=dict)  # name -> (value, limit); correct iff value <= limit
     device_kind: str = ""
     device_count: int = 1

@@ -19,7 +19,8 @@ over the steps are read from the step's results and its state.
 End-to-end: ``train_images_per_s``, the images of every step completed in
 the window over the window's seconds (host clock; the window ends with a
 synchronise). Traced run: the step's phases (CUDA events from its
-``on_phase`` hook) and a profiled window of ``trace_steps`` steps.
+``on_phase`` hook), a profiled window of ``trace_steps`` steps, then the
+port's own spans and counters over as many (``trace.traced_program``).
 
 Correctness (after the window, the state freed): the plain reference
 (``reference/train.py``) follows the checked steps from the same seeded
@@ -179,9 +180,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float) -> Reco
         rec.spans = spans.close()
         active.clear()
         rec.trace_units = int(mix["trace_steps"])
-        rec.trace = tracing.traced(
-            lambda: [step_fn(state, pool[j % len(pool)]) for j in range(rec.trace_units)],
-            dev.sync)
+
+        def work():
+            for j in range(rec.trace_units):
+                step_fn(state, pool[j % len(pool)])
+
+        rec.trace = tracing.traced(work, dev.sync)
+        rec.program_counts, program = tracing.traced_program(work, dev.sync)
+        if rec.trace is not None:
+            rec.trace.program = program
     rec.peak_window_bytes = rec.memory_peak_bytes = dev.peak()
     del state, model, params, step_fn
     dev.free()

@@ -1,5 +1,6 @@
-"""Process CPU ms a unit span took, every thread's, over the measured
-window (the port's tracer: ``pairnet.serve`` or ``pairnet.train.step``)."""
+"""Process CPU ms a unit span took, every thread's, over the traced run's
+unprofiled pass with the port's tracer on (``trace.traced_program``; the
+units ``pairnet.serve`` or ``pairnet.train.step``)."""
 
 from portbench import program
 

@@ -1,5 +1,6 @@
 """Search steps of the Hungarian (``batched_hungarian.steps``, counted on the
-device while the port's tracer is on) over the measured window, a step."""
+device while the port's tracer is on) over the traced run's unprofiled pass
+with the tracer on (``trace.traced_program``), a step."""
 
 from portbench import program
 

@@ -10,13 +10,15 @@ span that holds them; the ``self_`` figures to the innermost alone. The
 units are the ``pairnet.serve`` and ``pairnet.train.step`` spans: what lies
 outside every unit is the harness's and is left out.
 
-Until the harness calls it from its traced run, a run with the port's
-spans on is made by this module's command, which wraps the harness's own
-calls for the one run and prints the figures and the metrics their
-readers (``portbench/metrics/``) give::
+The harness's traced run (``--trace 1``) ends with two passes over its
+traced units with the port's tracer on (``trace.traced_program``): it keeps
+the growth of the port's counters over the first as ``program_counts`` and
+the summary of the second, profiled, as ``trace.program``; the readers
+(``portbench/metrics/``) take their metrics from those. This module's
+command makes one such run and prints the span table, the counts a unit
+and the run's result line::
 
-    python3 -m portbench.program --workload <cell> --seed <n> --seconds <s> \\
-        --trace <0|1> [--tracer <0|1>]
+    python3 -m portbench.program --workload <cell> --seed <n> --seconds <s>
 """
 
 from __future__ import annotations
@@ -164,8 +166,9 @@ def summarize(events: list) -> ProgramSummary | None:
 
 
 # --- the readers' arithmetic: a record's ``trace.program`` (the summary of
-# its profiled window) and ``program_counts`` (the difference of the port's
-# ``tracing.snapshot()`` over the measured window); None where it has none
+# the profiled pass with the tracer on) and ``program_counts`` (the
+# difference of the port's ``tracing.snapshot()`` over the unprofiled one);
+# None where it has none
 
 
 def of(rec) -> ProgramSummary | None:
@@ -203,77 +206,6 @@ def unit_cpu_ms(rec):
 # --- the command
 
 
-NEW_METRICS = {  # the new metrics of each end-to-end metric's cells
-    "serve_images_per_s": ("launches.serve", "host_syncs.serve", "host_cpu_ms.serve"),
-    "latency_p95_ms": ("launches.latency", "host_syncs.latency", "host_cpu_ms.latency",
-                       "backbone_idle_ms.latency", "pixel_decoder_idle_ms.latency",
-                       "decoder_idle_ms.latency", "pair_head_idle_ms.latency",
-                       "postprocess_idle_ms.latency"),
-    "train_images_per_s": ("launches.train", "host_syncs.train", "host_cpu_ms.train",
-                           "forward_idle_ms.train", "targets_loss_idle_ms.train",
-                           "backward_idle_ms.train", "optimizer_idle_ms.train",
-                           "hungarian_steps.train"),
-}
-
-
-def traced_run(bench, name, seed, seconds, trace, tracer, device):
-    """One run of cell ``name`` through the harness (``run.run_cell``) with
-    the port's tracer on or off, its calls wrapped for this run alone: the
-    window runs from ``Device.reset_peak`` to the first of ``trace.traced``
-    and ``Device.peak``, where the port's snapshot and the process CPU time
-    are read; ``trace.summarize`` also keeps :func:`summarize`. Returns
-    (the result line's object, the record, the program's figures)."""
-    import time
-
-    from pairnet_torch.utils import tracing
-
-    from portbench import harness, run
-    from portbench import trace as trace_mod
-
-    marks = {}
-
-    def mark(key):
-        marks.setdefault(key, (tracing.snapshot(), time.process_time_ns()))
-
-    orig = (harness.Device.reset_peak, harness.Device.peak, trace_mod.traced,
-            trace_mod.summarize)
-
-    def reset_peak(self):
-        orig[0](self)
-        mark("start")
-
-    def peak(self):
-        mark("end")
-        return orig[1](self)
-
-    def traced(work, sync):
-        sync()
-        mark("end")
-        return orig[2](work, sync)
-
-    def summarize_both(events):
-        summary = orig[3](events)
-        if summary is not None:
-            summary.program = summarize(events)
-        return summary
-
-    tracing.enable(tracer)
-    (harness.Device.reset_peak, harness.Device.peak, trace_mod.traced,
-     trace_mod.summarize) = reset_peak, peak, traced, summarize_both
-    try:
-        result, rec = run.run_cell(bench, name, seed, seconds, trace, device)
-    finally:
-        (harness.Device.reset_peak, harness.Device.peak, trace_mod.traced,
-         trace_mod.summarize) = orig
-        tracing.enable(False)
-    (snap0, cpu0), (snap1, cpu1) = marks["start"], marks["end"]
-    rec.program_counts = tracing.difference(snap0, snap1)
-    figures = {"process_cpu_ms_per_unit": (cpu1 - cpu0) * 1e-6 / max(rec.attempted, 1),
-               "counts_per_unit": {k: v / max(rec.attempted, 1)
-                                   for k, v in rec.program_counts.items() if v}}
-    return result, rec, figures
-
-
 def main(argv=None) -> int:
     import argparse
     import json
@@ -282,13 +214,12 @@ def main(argv=None) -> int:
     import torch
 
     from portbench.registry import Bench
+    from portbench.run import run_cell
 
-    ap = argparse.ArgumentParser(description="a run of a cell with the port's spans on")
+    ap = argparse.ArgumentParser(description="a traced run of a cell and the port's figures")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
-    ap.add_argument("--trace", type=int, choices=(0, 1), default=1)
-    ap.add_argument("--tracer", type=int, choices=(0, 1), default=1)
     args = ap.parse_args(argv)
     bench = Bench()
     cell = bench.cell(args.workload)
@@ -296,19 +227,16 @@ def main(argv=None) -> int:
         print(f"portbench.program: {args.workload} needs {cell.chips} CUDA device(s)",
               file=sys.stderr)
         return 2
-    result, rec, figures = traced_run(bench, args.workload, args.seed, args.seconds,
-                                      bool(args.trace), bool(args.tracer), "cuda:0")
+    result, rec = run_cell(bench, args.workload, args.seed, args.seconds, True, "cuda:0")
+    units = max(rec.trace_units, 1)
+    figures = {"counts_per_unit": {k: v / units for k, v in rec.program_counts.items() if v}}
     summary = of(rec)
-    new = {}
-    for e2e in cell.end_to_end:
-        for metric in NEW_METRICS.get(e2e["name"], ()):
-            new[metric] = bench.reader(metric)(rec)
     if summary is not None:
         print(summary.table(), file=sys.stderr)
         figures["spans"] = {n: asdict(r) for n, r in summary.spans.items()}
         figures["units"] = summary.units
-    print(json.dumps({"workload": args.workload, "seed": args.seed, "trace": args.trace,
-                      "tracer": args.tracer, "program": new, **figures, **result}), flush=True)
+    print(json.dumps({"workload": args.workload, "seed": args.seed, **figures, **result}),
+          flush=True)
     return 0
 
 

@@ -1,14 +1,15 @@
-"""The system under test: the port's Pair-Net built from a configuration
-file's ``model`` and loaded with the benchmark's weights by name.
+"""The system under test: the port's entries that a run drives.
 
-The benchmark takes from the port only its model classes, its serving
-entry (``pairnet_torch.bench.serve``), its train step (optimizer, state
-and ``make_train_step``) and its MSDA switch. The model is allocated on
-``meta`` and filled from the benchmark's tensors (``load_state_dict``,
-strict: every name of the reference's specs, and only those).
+The benchmark takes from the port only its model classes and MSDA switch
+(through a family's ``build``, ``portbench/families/``), its serving entry
+(``pairnet_torch.bench.serve``), its train step (optimizer, state and
+``make_train_step``) and, in a traced run, its tracer
+(``pairnet_torch.utils.tracing``: its spans and counters).
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -20,19 +21,31 @@ def import_system():
     import pairnet_torch.train.trainer  # noqa: F401
 
 
-def build_model(model_cfg: dict, weights: dict, device, dtype, msda: str):
-    """The port's ``PSGTr(backbone, PairNetHead)`` in ``dtype`` on
-    ``device``, holding ``weights``, in eval mode, every MSDA on ``msda``."""
-    from pairnet_torch.flagship import set_deform_impl
-    from pairnet_torch.models.frameworks.psgtr import PSGTr, build_backbone
-    from pairnet_torch.models.heads.pairnet_head import PairNetHead
+@contextmanager
+def tracer():
+    """The port's spans and counters on inside the block, off after it."""
+    from pairnet_torch.utils import tracing
 
-    with torch.device("meta"):
-        bb = build_backbone(model_cfg["backbone"])
-        model = PSGTr(bb, PairNetHead(bb.out_channels, **model_cfg["head"]))
-    model = model.to_empty(device=device).to(dtype)
-    model.load_state_dict(weights, strict=True)
-    return set_deform_impl(model, msda).eval()
+    tracing.enable(True)
+    try:
+        yield
+    finally:
+        tracing.enable(False)
+
+
+def snapshot() -> dict:
+    """The port's counters so far (``tracing.snapshot()``); it reads the
+    counts kept on the device to the host, so take it outside a timed span."""
+    from pairnet_torch.utils import tracing
+
+    return tracing.snapshot()
+
+
+def counts_since(before: dict) -> dict:
+    """The growth of the port's counters since the snapshot ``before``."""
+    from pairnet_torch.utils import tracing
+
+    return tracing.difference(before, tracing.snapshot())
 
 
 def serve(model, images, num_things: int):
@@ -51,7 +64,9 @@ def train_step(model_cfg: dict, train_cfg: dict, weights: dict, device, seed: in
     from pairnet_torch.train.optim import build_optimizer
     from pairnet_torch.train.trainer import TrainState, make_train_step
 
-    model = build_model(model_cfg, weights, device, torch.float32, train_cfg["msda"])
+    from portbench.families import pairnet
+
+    model = pairnet.build(model_cfg, weights, device, torch.float32, train_cfg["msda"])
     optimizer = build_optimizer(model)
     state = TrainState(model, optimizer, model_cfg["head"]["num_relations"],
                        seed=int(seed) % 2 ** 63)

@@ -1,13 +1,23 @@
 """The program-span summarizer (``portbench/program.py``) on a hand-built
-trace, its readers, and a run with the port's spans on at tiny sizes."""
+trace, its readers, and traced runs with the port's spans on at tiny
+sizes."""
 
+import time
 from types import SimpleNamespace
 
 import pytest
 
 from portbench import harness, program
-from portbench import trace as trace_mod
 from portbench.registry import Bench
+from portbench.run import run_cell
+
+PROGRAM_SOURCES = ("program_span", "program_counter")
+
+
+def program_metrics(per_layer, moves=None):
+    """The metrics read from the port's own spans and counters."""
+    return [m["name"] for m in per_layer
+            if m["source"] in PROGRAM_SOURCES and moves in (None, m["moves"])]
 
 
 def span(name, ts, dur, tid=1):
@@ -98,7 +108,10 @@ def test_readers(summary):
     counts = {"serve.units": 4, "serve.cpu_ns": 8_000_000, "batched_hungarian.steps": 40,
               "train.step.units": 0}
     rec = SimpleNamespace(trace=SimpleNamespace(program=summary), program_counts=counts)
-    got = {m: bench.reader(m)(rec) for m in program.NEW_METRICS["latency_p95_ms"]}
+    assert len(program_metrics(bench.spec["per_layer"])) == 19
+    got = {m: bench.reader(m)(rec)
+           for m in program_metrics(bench.spec["per_layer"], "latency_p95_ms")}
+    assert len(got) == 8
     assert got["launches.latency"] == 3 and got["host_syncs.latency"] == 1
     assert got["host_cpu_ms.latency"] == pytest.approx(2.0)
     assert got["backbone_idle_ms.latency"] == pytest.approx(0.02)
@@ -107,28 +120,40 @@ def test_readers(summary):
     assert bench.reader("hungarian_steps.train")(rec) == 10
     # a record without the program's figures (the parent's) reads nothing
     bare = harness.Record()
-    for metrics in program.NEW_METRICS.values():
-        assert all(bench.reader(m)(bare) is None for m in metrics)
+    assert all(bench.reader(m)(bare) is None for m in program_metrics(bench.spec["per_layer"]))
 
 
-@pytest.mark.parametrize("cell,trace", [("tiny_r50.train_b4", False),
-                                        ("tiny_r50.serve_b1", True)])
-def test_run_with_the_spans_on(tiny_root, cell, trace):
-    """A CPU run: the window's counts come from the port's tracer, and the
-    harness's calls are its own again after the run."""
+@pytest.mark.parametrize("cell,trace", [("tiny_r50.train_b4", True),
+                                        ("tiny_r50.serve_b1", True),
+                                        ("tiny_r50.serve_b1", False)])
+def test_run_with_the_spans_on(tiny_root, monkeypatch, cell, trace):
+    """A CPU run: with ``--trace 1`` the port's tracer is on for the passes
+    after the traced window and off after them, the counts come from it,
+    and each program metric of the cell reads a number or nothing; with
+    ``--trace 0`` the tracer is never switched and nothing is counted."""
     from pairnet_torch.utils import tracing
 
-    orig = (harness.Device.reset_peak, harness.Device.peak, trace_mod.traced,
-            trace_mod.summarize)
-    result, rec, figures = program.traced_run(Bench(tiny_root), cell, 2 ** 31 + 9, 0.3, trace,
-                                              True, "cpu")
+    switched = []
+    enable = tracing.enable
+    monkeypatch.setattr(tracing, "enable", lambda on: switched.append(on) or enable(on))
+    bench = Bench(tiny_root)
+    result, rec = run_cell(bench, cell, 2 ** 31 + 9, 0.3, trace, "cpu", t0=time.perf_counter())
     assert result["correct"] is True and not tracing.enabled()
-    assert (harness.Device.reset_peak, harness.Device.peak, trace_mod.traced,
-            trace_mod.summarize) == orig
+    names = program_metrics(bench.cell(cell).per_layer)
+    if not trace:
+        assert switched == [] and rec.program_counts == {}
+        assert not set(names) & set(result["metrics"])
+        return
+    assert switched == [True, False]
     unit = "train.step" if "train" in cell else "serve"
-    assert rec.program_counts[f"{unit}.units"] == rec.attempted
-    assert figures["process_cpu_ms_per_unit"] > 0
+    assert rec.program_counts[f"{unit}.units"] == rec.trace_units
     assert program.unit_cpu_ms(rec) > 0
     if unit == "train.step":
         assert program.per_unit_count(rec, "batched_hungarian.steps") > 0
     assert program.of(rec) is None  # the CPU's trace holds no device record
+    assert len(names) == 8
+    for name in names:
+        value = bench.reader(name)(rec)
+        assert value is None or isinstance(value, (int, float)), name
+    host_cpu = "host_cpu_ms.train" if unit == "train.step" else "host_cpu_ms.latency"
+    assert result["metrics"][host_cpu]["value"] > 0

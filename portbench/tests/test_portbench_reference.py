@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from portbench import sut
+from portbench.families import pairnet as family
 from portbench.reference import init, pairnet, post
 from portbench.registry import Bench
 from portbench.run import run_cell
@@ -20,7 +21,7 @@ KEYS = ("cls", "mask", "rel", "importance", "sub", "obj", "sub_seg", "obj_seg")
 def test_forward_and_postprocess_match_the_port(backbone):
     cfg = {"backbone": BACKBONES[backbone], "head": TINY_HEAD}
     weights = init.make_weights(pairnet.param_specs(cfg), 3, "cpu")
-    model = sut.build_model(cfg, weights, "cpu", torch.float32, "plain")
+    model = family.build(cfg, weights, "cpu", torch.float32, "plain")
     images = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         out, preds = sut.serve(model, images, 4)

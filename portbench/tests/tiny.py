@@ -1,61 +1,91 @@
-"""A copy of the benchmark at tiny sizes, for the harness's CPU tests: the
-repository's ``portbench`` under a temporary root, beside a
-``BENCHMARK.json`` whose cells run tiny Pair-Nets (R-50 at base width 8,
-a 4-block Swin) on 64x96 images, with the repository's traffic mixes and
-metrics."""
+"""A copy of the benchmark at tiny sizes, for the harness's CPU tests: a
+checkout's ``portbench`` under a temporary root, beside a
+``BENCHMARK.json`` whose cells run the tiny configurations of
+``portbench/tests/tiny_configs/`` (Pair-Net: R-50 at base width 8, a
+4-block Swin, on 64x96 images, in float32) under the checkout's traffic
+mixes and metrics. Each tiny configuration takes every cell of a
+configuration of its family; a family brings its tiny cells with a file
+there."""
 
 from __future__ import annotations
 
-import copy
 import json
 import shutil
 from pathlib import Path
 
+from portbench.registry import family_name
+
 PORTBENCH = Path(__file__).resolve().parent.parent
-TINY_HEAD = dict(num_classes=7, num_relations=5, num_obj_query=20, num_rel_query=16,
-                 embed_dims=32, num_heads=4, num_decoder_layers=3, num_relation_layers=2,
-                 num_feat_levels=3, pixel_decoder_layers=1, pixel_decoder_ffn=64,
-                 decoder_ffn=64, relation_ffn=64, relation_ffn_drop=0.1, mapper="conv_tiny")
-TINY_TRAIN_LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "update_gap_median": 1e-3,
-                     "assign_gap": 1e-4, "targets_mismatch": 0}
-BACKBONES = {
-    "tiny_r50": {"type": "ResNet", "depth": 50, "base_width": 8},
-    "tiny_swin": {"type": "SwinTransformer", "embed_dim": 16, "depths": [1, 1, 2, 1],
-                  "num_heads": [1, 2, 4, 8], "window": 4},
-}
+TINY = {p.stem: json.loads(p.read_text())
+        for p in sorted((PORTBENCH / "tests" / "tiny_configs").glob("*.json"))}
+TINY_HEAD = TINY["tiny_r50"]["model"]["head"]
+BACKBONES = {name: cfg["model"]["backbone"] for name, cfg in TINY.items()
+             if family_name(cfg) == "pairnet"}
 
 
-def make_root(tmp: Path, seconds_mix: dict | None = None) -> Path:
-    """A checkout-like root under ``tmp`` with the tiny configurations and
-    one cell per (tiny configuration, repository mix)."""
+def make_root(tmp: Path, checkout: Path = PORTBENCH.parent) -> Path:
+    """A checkout-like root under ``tmp`` with the tiny configurations of
+    ``checkout`` and, for each cell of ``checkout``'s ``BENCHMARK.json``,
+    one cell a tiny configuration of the same family."""
     root = Path(tmp) / "root"
-    shutil.copytree(PORTBENCH, root / "portbench",
+    shutil.copytree(checkout / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    bench = json.loads((PORTBENCH.parent / "BENCHMARK.json").read_text())
-    base = json.loads((PORTBENCH / "configs" / "pairnet_r50.json").read_text())
+    bench = json.loads((checkout / "BENCHMARK.json").read_text())
+    families = {c["name"]: family_name(json.loads((checkout / c["file"]).read_text()))
+                for c in bench["configs"]}
+    tiny = {p.stem: json.loads(p.read_text())
+            for p in sorted((checkout / "portbench" / "tests" / "tiny_configs").glob("*.json"))}
     configs = []
-    for name, bb in BACKBONES.items():
-        cfg = copy.deepcopy(base)
-        cfg.update(name=name, image_hw=[64, 96], num_things=4)
-        cfg["model"] = {"backbone": bb, "head": TINY_HEAD}
-        # the tiny cells compute in float32, where the reference follows the
-        # system to rounding (bf16 at these widths strays further than the
-        # full-width cells' limits allow)
-        cfg["serve"] = {"dtype": "float32", "msda": "exact"}
-        cfg["train"]["compute_dtype"] = "float32"
-        cfg["limits"]["train"] = TINY_TRAIN_LIMITS
+    for name, cfg in tiny.items():
         (root / "portbench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         configs.append({"name": name, "source": "tiny", "file": f"portbench/configs/{name}.json",
                         "reduced": [], "why": "tiny"})
-    cells = []
+    cells, origin = {}, {}  # tiny cell -> its entry, the checkout's cells it stands for
     for w in bench["workloads"]:
-        for name in BACKBONES:
-            cells.append(dict(w, name=f"{name}.{w['traffic']}", config=name))
+        for name, cfg in tiny.items():
+            if family_name(cfg) == families[w["config"]]:
+                cell = f"{name}.{w['traffic']}"
+                cells.setdefault(cell, dict(w, name=cell, config=name))
+                origin.setdefault(cell, set()).add(w["name"])
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [c["name"] for c in cells
-                              if any(c["traffic"] == t.split(".", 1)[1]
-                                     for t in m["workloads"])]
-    bench.update(configs=configs, workloads=cells)
+            m["workloads"] = [c for c, ws in origin.items() if ws & set(m["workloads"])]
+    bench.update(configs=configs, workloads=list(cells.values()))
     (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return root
+
+
+STUB_FAMILY = '''"""A second model family for the harness's tests: Pair-Net's pieces under
+another name, its first stage span renamed and one more check."""
+
+from portbench.families import pairnet
+from portbench.families.pairnet import Taps, build, shape_counts, stand_in, weights  # noqa: F401
+
+BOUNDARIES = (("trunk", "backbone"),) + pairnet.BOUNDARIES[1:]
+
+
+def reference_check(cell, seed, dev, kept, pool):
+    return dict(pairnet.reference_check(cell, seed, dev, kept, pool), family_stub=(0.0, 0.0))
+'''
+
+
+def add_stub_family(checkout: Path) -> None:
+    """Add to ``checkout`` a model family ``stub`` (``STUB_FAMILY``), its
+    configuration ``stub_r50``, its tiny configuration ``tiny_stub`` and a
+    cell ``stub_r50.serve_b1`` with the latency metrics, by new files and
+    ``BENCHMARK.json`` entries alone."""
+    pb = checkout / "portbench"
+    (pb / "families" / "stub.py").write_text(STUB_FAMILY)
+    for src, name in ((pb / "configs" / "pairnet_r50.json", "stub_r50"),
+                      (pb / "tests" / "tiny_configs" / "tiny_r50.json", "tiny_stub")):
+        cfg = dict(json.loads(src.read_text()), name=name, family="stub")
+        (src.parent / f"{name}.json").write_text(json.dumps(cfg))
+    spec = json.loads((checkout / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "stub_r50", "source": "test", "reduced": [], "why": "test",
+                            "file": "portbench/configs/stub_r50.json"})
+    spec["workloads"].append({"name": "stub_r50.serve_b1", "config": "stub_r50",
+                              "traffic": "serve_b1", "chips": 1, "why": "a second family"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "pairnet_r50.serve_b1" in m.get("workloads", ()):
+            m["workloads"].append("stub_r50.serve_b1")
+    (checkout / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))

@@ -7,8 +7,12 @@ it. Busy time is the union of the kernel, memcpy and memset intervals in
 it (overlaps count once). Idle gaps are the stretches of the window with
 no device record, labelled with what the host was doing at their middle:
 the harness's outermost annotation and the innermost host event (the
-200 longest gaps; the rest are summed under one label). A window
-that holds no device record is profiled again, up to three more times.
+200 longest gaps; the rest are summed under one label). The port's own
+spans in the same events go to ``program`` (``portbench/program.py``);
+they are there only while the port's tracer is on, which
+:func:`traced_program` switches on for passes of its own, after the
+window. A window that holds no device record is profiled again, up to
+three more times.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ class TraceSummary:
     device_ops: list = field(default_factory=list)  # [name, seconds], the 10 longest in total
     idle_gaps: list = field(default_factory=list)  # [label, seconds], the 10 longest in total
     empty_windows: int = 0
+    program: object = None  # program.ProgramSummary of the port's spans in the window, or None
 
     def kernel_seconds(self, pattern: str) -> tuple[float, int]:
         """(total seconds, records) of the kernels whose name matches ``pattern``."""
@@ -101,12 +106,15 @@ def summarize(events: list) -> TraceSummary | None:
         gap_time[f"the {len(gaps) - LABELLED_GAPS} shorter gaps"] = sum(
             g1 - g0 for g0, g1 in gaps[LABELLED_GAPS:]) * 1e-6
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]  # noqa: E731
+    from portbench import program  # imports this module
+
     return TraceSummary(
         window_s=(w1 - w0) * 1e-6,
         busy_s=sum(t - s for s, t in busy) * 1e-6,
         kernels=[(n, (t - s) * 1e-6) for s, t, c, n in dev if c == "kernel"],
         device_ops=top(op_time),
         idle_gaps=top(gap_time),
+        program=program.summarize(events),
     )
 
 
@@ -136,3 +144,22 @@ def traced(work, sync) -> TraceSummary | None:
     if summary is not None:
         summary.empty_windows = empty
     return summary
+
+
+def traced_program(work, sync):
+    """The port's own figures over ``work()`` with its tracer on
+    (``sut.tracer``): the growth of its counters over one pass, unprofiled,
+    and the summary of its spans over a second pass, profiled (or None).
+    The passes come after the measured and the traced windows, so the
+    tracer's cost (its spans, and the process CPU clock read at each unit's
+    ends) moves no other reading."""
+    from portbench import sut
+
+    with sut.tracer():
+        sync()
+        before = sut.snapshot()
+        work()
+        sync()
+        counts = sut.counts_since(before)
+        summary = traced(work, sync)
+    return counts, None if summary is None else summary.program
